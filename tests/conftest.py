@@ -16,3 +16,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "chaos: fault-injection / recovery tests on simulated devices")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's Hopper kernels); skips without one")
