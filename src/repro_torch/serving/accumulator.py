@@ -72,6 +72,8 @@ class RequestHandle:
         self.remaining = req.n * len(req.members)
         self.done = threading.Event()
         self.error: Optional[BaseException] = None
+        # submission-to-completion seconds, set before ``done`` on success
+        self.latency_s: Optional[float] = None
         self.messages = 0                     # data messages folded
         # graceful degradation (DESIGN.md §10): member-rows forgiven because
         # their member lost its last instance mid-request.  quality is the
@@ -193,7 +195,7 @@ class PredictionAccumulator:
                 tr.note_deadline_miss()
         if error is None and handle.req.t_submit is not None:
             # per-class end-to-end latency (the hp_p50 SLO view, §7)
-            lat = time.perf_counter() - handle.req.t_submit
+            lat = handle.latency_s = time.perf_counter() - handle.req.t_submit
             self.timers.latency(
                 "high" if handle.req.priority == seg.PRIORITY_HIGH
                 else "normal", lat)

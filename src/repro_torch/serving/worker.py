@@ -273,6 +273,12 @@ class Worker:
         # only released once the sender materializes a chunk)
         self._send_q: "queue.SimpleQueue" = queue.SimpleQueue()
         self._threads: List[threading.Thread] = []
+        # a simulated cell (no torch_device) can only back a fake worker: a
+        # real member on it would be served wherever its tensors landed, so
+        # the CPU must be asked for explicitly (host_cpus())
+        if device.torch_device is None and not fake:
+            raise ValueError(f"worker {worker_id}: cell {device.name!r} has no "
+                             "torch_device; use cuda_devices() or host_cpus()")
         self._device = device.torch_device if device.torch_device is not None \
             else torch.device("cpu")
         self._cuda = self._device.type == "cuda"

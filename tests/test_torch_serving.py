@@ -2,6 +2,8 @@
 package: the oracle of tests/test_serving.py (each member's forward, combined
 in numpy) and, for a quantized member, the JAX system itself.  Parameters
 are the JAX package's, bridged through numpy."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -121,8 +123,12 @@ def test_int8_member_matches_jax_system(ens2):
                                                               "int8")),
                       jcfgs[1], jnp.asarray(X))
     _, scale = jq.quantize_symmetric(lg[:, -1, :jcfgs[1].vocab_size], axis=-1)
-    row_tol = 2e-5 + 0.5 * np.asarray(scale)
-    assert (np.abs(Y - Yj) <= row_tol).all()
+    # each element is within 2e-5 of a whole number of steps, k in {-1,0,1}
+    step = 0.5 * np.asarray(scale)
+    k = np.rint((Y - Yj) / step)
+    assert (np.abs(k) <= 1).all()
+    assert (np.abs(Y - Yj - k * step) <= 2e-5).all()
+    assert (k != 0).mean() <= 0.01
 
 
 def test_concurrent_requests_coalesce(ens2):
@@ -133,7 +139,21 @@ def test_concurrent_requests_coalesce(ens2):
         handles = [s.predict_async(X[i * 20:(i + 1) * 20]) for i in range(4)]
         Y = np.concatenate([h.result(120.0) for h in handles])
         assert s.serving_counters()["rows_valid"] == 80 * 2
+        assert all(h.latency_s > 0 for h in handles)
     np.testing.assert_allclose(Y, oracle(jcfgs, jparams, X), atol=2e-5)
+
+
+def test_simulated_cell_serves_only_fake_workers(ens2):
+    """A cell without a torch_device never hosts a real member: the CPU must
+    be asked for through host_cpus(), the card through cuda_devices()."""
+    _, tcfgs, _, tparams = ens2
+    cell = dataclasses.replace(host_cpus(1)[0], torch_device=None)
+    alloc = AllocationMatrix([cell], [c.name for c in tcfgs],
+                             np.array([[8, 8]]))
+    with pytest.raises(ValueError, match="torch_device"):
+        InferenceSystem(tcfgs, tparams, alloc, max_seq=SEQ)
+    with InferenceSystem(tcfgs, tparams, alloc, max_seq=SEQ, fake=True) as s:
+        assert s.predict(_X(8, seed=7)).shape == (8, tcfgs[0].vocab_size)
 
 
 def test_unported_options_raise(ens2):
