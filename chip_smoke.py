@@ -12,12 +12,17 @@ Phases, one JSON line each; any failed phase exits non-zero:
    card over the JAX test suite's cases and the serving path's shapes, with
    the stated tolerance, and its time beside the plain version's, the
    library call's (a yardstick only, the port never calls it) and its bound;
-4. end to end at full width: ``InferenceSystem`` on one card, ``combine=
-   "pallas"``, ``use_kernel=True``, serving qwen3-1.7b (28 layers, fp32) and
-   the same widths at 14 layers as an int8 member, with random weights from
-   ``--seed``.  Four concurrent requests of 40 rows; ``Y`` is held against
-   each member's plain forward on the card combined in numpy, and the launch
-   counts must show that every kernel ran and no plain version did.
+4. end to end at full width, one phase per member pair: ``InferenceSystem``
+   on one card, ``combine="pallas"``, ``use_kernel=True``, an fp32 member
+   and the same widths at half the layers as an int8 member, with random
+   weights from ``--seed``: qwen3-1.7b (28 + 14 layers), mamba2-1.3b (48 +
+   24, SSM layers) and hymba-1.5b (32 + 16, hybrid attention + SSM layers).
+   Four concurrent requests of 40 rows each; ``Y`` is held against each
+   member's plain forward on the card combined in numpy, and the launch
+   counts must show that each attention or hybrid layer ran the flash kernel
+   and each SSM or hybrid layer the scan kernel once per chunk, that the
+   combine kernels ran, and that no plain version did.  Each system is shut
+   down and its memory freed before the next pair.
 
 The line before the last holds the card's name and power limit; before it,
 the per-kernel summary line.  The last line is ``{"ok": true, "device":
@@ -28,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -40,7 +46,7 @@ SRC = ROOT / "src"
 
 # published H100 SXM peaks (NVIDIA data sheet), at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12              # f32 on the CUDA cores (all three kernels'
+F32_FLOPS = 67e12              # f32 on the CUDA cores (every kernel's
                                # arithmetic is f32)
 
 FLASH_CASES = [                # (b, s, h, kv, hd, window, dtype) — JAX suite
@@ -50,15 +56,31 @@ FLASH_CASES = [                # (b, s, h, kv, hd, window, dtype) — JAX suite
     (1, 256, 4, 1, 128, 64, "float32"),
     (1, 200, 2, 2, 48, 0, "float32"),
     (2, 64, 4, 2, 64, 0, "bfloat16"),
-    (16, 256, 16, 8, 128, 0, "float32"),   # serving path, member 0 chunk
-    (8, 256, 16, 8, 128, 0, "float32"),    # serving path, member 1 chunk
+    (16, 256, 16, 8, 128, 0, "float32"),   # serving path, qwen3 chunks
+    (8, 256, 16, 8, 128, 0, "float32"),
+    (16, 256, 25, 5, 64, 1024, "float32"),  # serving path, hymba chunks
+    (8, 256, 25, 5, 64, 1024, "float32"),
 ]
+# served class counts: qwen3 151936, mamba2 50280, hymba 32001 (rows not
+# 16-byte aligned)
 COMBINE_CASES = [(4, 128, 100), (12, 44, 91), (3, 128, 1000), (1, 7, 13),
-                 (2, 32, 151936), (1, 32, 151936), (1, 8, 151936)]
+                 (2, 32, 151936), (1, 32, 151936), (1, 8, 151936),
+                 (1, 32, 50280), (1, 8, 50280), (1, 32, 32001), (1, 8, 32001)]
 QUANT_CASES = [(1, 8, 512), (3, 40, 512), (2, 128, 640), (1, 32, 151936),
-               (1, 8, 151936)]
+               (1, 8, 151936), (1, 32, 50280), (1, 8, 50280), (1, 32, 32001),
+               (1, 8, 32001)]
+SSD_CASES = [                  # (b, s, h, p, n, chunk) — JAX suite
+    (2, 64, 4, 32, 16, 16),
+    (1, 128, 8, 64, 32, 32),
+    (2, 100, 4, 32, 16, 16),   # ragged S
+    (1, 64, 2, 64, 128, 64),
+    (2, 200, 8, 64, 128, 64),  # ragged S with the mamba2 state
+    (16, 256, 64, 64, 128, 64),  # serving path, mamba2 member-0 chunk
+    (16, 256, 50, 64, 16, 64),   # serving path, hymba member-0 chunk
+]
 MAIN_FLASH = (16, 256, 16, 8, 128)
 MAIN_SEG, MAIN_C = 32, 151936
+MAIN_SSD = (16, 256, 64, 64, 128, 64)
 MAX_FLIP_SHARE = 0.01          # int8 code flips allowed in the served Y
 
 
@@ -100,13 +122,15 @@ def bound(nbytes: float, ops: float, peak_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def close(torch, got, want, tol: float) -> float:
-    """Max |got - want|; fails unless |got-want| <= tol + tol*|want|."""
+def close(torch, got, want, tol: float, rtol=None) -> float:
+    """Max |got - want|; fails unless |got-want| <= tol + rtol*|want|
+    (rtol defaults to tol)."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
+    rtol = tol if rtol is None else rtol
     if not torch.isfinite(got).all():
         fail("non-finite kernel output")
-    if (err > tol + tol * want.abs()).any():
+    if (err > tol + rtol * want.abs()).any():
         fail(f"max abs error {err.max().item():.3g} over tolerance {tol}")
     return err.max().item()
 
@@ -178,10 +202,17 @@ def phase_combine(torch, gen, dev):
         inplace = part.clone()                   # the combiner's usage
         ec.ensemble_combine(p, w, inplace, out=inplace)
         err_i = close(torch, inplace, want, 1e-5)
+        # the same fold into rows 1.. of a larger partial (a span that does
+        # not start at row 0; 16-byte aligned only when C % 4 == 0)
+        big = torch.zeros((seg + 1, c), device=dev)
+        big[1:] = part
+        view = big[1:]
+        ec.ensemble_combine(p, w, view, out=view)
+        err_v = close(torch, view, want, 1e-5)
         torch.cuda.synchronize()
         cases.append({"shape": [m, seg, c], "fresh_err": err_f,
                       "accumulate_err": err_a, "in_place_err": err_i,
-                      "tol": 1e-5})
+                      "row_offset_err": err_v, "tol": 1e-5})
         if (m, seg, c) == (1, MAIN_SEG, MAIN_C):
             main = (p, w, part, max(err_a, err_i))
     p, w, part, err = main
@@ -222,10 +253,15 @@ def phase_quant(torch, gen, dev):
             inplace = part.clone()
             ec.ensemble_combine_quant(inplace, q, s, w, out=inplace)
             err_i = close(torch, inplace, want, 1e-4)
+            big = torch.zeros((seg + 1, c), device=dev)
+            big[1:] = part
+            view = big[1:]
+            ec.ensemble_combine_quant(view, q, s, w, out=view)
+            err_v = close(torch, view, want, 1e-4)
             torch.cuda.synchronize()
             cases.append({"dtype": qdt, "shape": [m, seg, c],
                           "max_abs_err": err, "in_place_err": err_i,
-                          "tol": 1e-4})
+                          "row_offset_err": err_v, "tol": 1e-4})
             if qdt == "int8" and (m, seg, c) == (1, MAIN_SEG, MAIN_C):
                 main = (part, q, s, w, max(err, err_i))
     part, q, s, w, err = main
@@ -246,6 +282,68 @@ def phase_quant(torch, gen, dev):
             "replaces": "src/repro/kernels/ensemble_combine.py:108",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def ssd_work(b, s, h, p, n, chunk):
+    """(bytes, flops) the scan must move and do at this shape: x and y once,
+    dt, A, B and C once; multiply-adds of the lower-triangular scores (once
+    per batch row and chunk, shared by the heads), the gated intra-chunk
+    product, and the inter-chunk read and update of the state, which the
+    first chunk (zero state in) and the last (no state out) do not need."""
+    nc = -(-s // chunk)
+    tri = chunk * (chunk + 1) // 2
+    macs = b * nc * tri * n                       # C.B^T, lower triangle
+    macs += b * nc * h * tri * p                  # (C.B^T o L)(dt x)
+    macs += 2 * b * (nc - 1) * h * chunk * p * n  # C.h_in and h_out
+    nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n)
+    return nbytes, 2.0 * macs
+
+
+def phase_ssd(torch, gen, dev):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd
+    cases = []
+    inputs = {}
+    for b, s, h, p, n, chunk in SSD_CASES:
+        x = torch.randn((b, s, h, p), generator=gen, device=dev)
+        dt = torch.nn.functional.softplus(
+            torch.randn((b, s, h), generator=gen, device=dev))
+        A = -torch.exp(0.5 * torch.randn((h,), generator=gen, device=dev))
+        bm = torch.randn((b, s, n), generator=gen, device=dev)
+        cm = torch.randn((b, s, n), generator=gen, device=dev)
+        got = ssd.ssd_scan(x, dt, A, bm, cm, chunk=chunk)
+        want = ref.ssd_scan_ref(x, dt, A, bm, cm, chunk=chunk)
+        torch.cuda.synchronize()
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        err = close(torch, got, want, tol, rtol=1e-4)
+        cases.append({"shape": [b, s, h, p, n, chunk], "max_abs_err": err,
+                      "atol": tol, "rtol": 1e-4})
+        inputs[(b, s, h, p, n, chunk)] = (x, dt, A, bm, cm, err)
+    timed = {}
+    for shape in SSD_CASES[-2:]:                 # the two served shapes
+        x, dt, A, bm, cm, err = inputs[shape]
+        chunk = shape[-1]
+        ms = time_ms(torch, lambda: ssd.ssd_scan(x, dt, A, bm, cm,
+                                                 chunk=chunk))
+        plain_ms = time_ms(torch, lambda: ref.ssd_scan_ref(
+            x, dt, A, bm, cm, chunk=chunk), iters=5)
+        nbytes, flops = ssd_work(*shape)
+        bound_ms, bound_by = bound(nbytes, flops, F32_FLOPS)
+        timed[shape] = {"shape": list(shape), "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "bytes": nbytes, "flops": flops, "max_abs_err": err}
+    main = timed[MAIN_SSD]
+    emit({"phase": "kernel:ssd_scan", "cases": cases, "ok": True,
+          "main_shape": list(MAIN_SSD), "timed": list(timed.values()),
+          "ms": main["ms"], "plain_ms": main["plain_ms"], "library_ms": None,
+          "bound_ms": main["bound_ms"], "bound_by": main["bound_by"]})
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:73",
+            "max_abs_err": main["max_abs_err"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -276,7 +374,8 @@ def serve(system, X, n_req: int, rows: int):
     return Y, max(done_at) - t0, [1e3 * h.latency_s for h in handles]
 
 
-def profile_served(torch, system, X, n_req: int, rows: int) -> None:
+def profile_served(torch, system, X, n_req: int, rows: int,
+                   pair: str) -> None:
     """The same requests again under torch.profiler: device time by kernel
     and the device's busy share of the window (one stream, so kernel times
     add up without overlap)."""
@@ -295,14 +394,32 @@ def profile_served(torch, system, X, n_req: int, rows: int) -> None:
     kernels = [e for e in prof.key_averages() if dev_us(e) > 0]
     busy_us = sum(dev_us(e) for e in kernels)
     top = sorted(kernels, key=dev_us, reverse=True)[:15]
-    emit({"phase": "profile", "window_s": window,
+    emit({"phase": f"profile:{pair}", "window_s": window,
           "device_busy_s": busy_us * 1e-6,
           "device_busy_share": busy_us * 1e-6 / window,
           "top": [{"name": e.key[:90], "device_ms": dev_us(e) * 1e-3,
                    "calls": e.count} for e in top]})
 
 
-def phase_end_to_end(torch, seed: int, smi: str, profile: bool = False):
+PAIRS = [                      # (fp32 member, layers of the int8 member)
+    ("qwen3-1.7b", 14),
+    ("mamba2-1.3b", 24),
+    ("hymba-1.5b", 16),
+]
+
+
+def layer_counts(cfg):
+    """(attention-kernel layers, scan-kernel layers) of one forward."""
+    from repro_torch.configs.base import ATTN, HYBRID, SSM, SWA
+    attn = sum(k in (ATTN, SWA, HYBRID) for k in cfg.pattern) * cfg.repeats
+    scan = sum(k in (SSM, HYBRID) for k in cfg.pattern) * cfg.repeats
+    return attn, scan
+
+
+def phase_pair(torch, name: str, int8_layers: int, seed: int, smi: str,
+               profile: bool = False):
+    """Serve one member pair end to end: ``name`` at its full configuration
+    in fp32, and the same widths cut to ``int8_layers`` layers in int8."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import AllocationMatrix, cuda_devices
@@ -313,15 +430,18 @@ def phase_end_to_end(torch, seed: int, smi: str, profile: bool = False):
     from repro_torch.serving import InferenceSystem
 
     dev = torch.device("cuda", 0)
-    cfg0 = get_config("qwen3-1.7b")
-    cfg1 = dataclasses.replace(cfg0, name="qwen3-1.7b-l14", num_layers=14)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg0 = get_config(name)
+    cfg1 = dataclasses.replace(cfg0, name=f"{name}-l{int8_layers}",
+                               num_layers=int8_layers)
     cfgs = [cfg0, cfg1]
+    batches = [16, 8]
     t0 = time.perf_counter()
     params = [init_params(cfg0, seed, dev), init_params(cfg1, seed + 1, dev)]
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     alloc = AllocationMatrix(cuda_devices()[:1], [c.name for c in cfgs],
-                             np.array([[16, 8]]))
+                             np.array([batches]))
     max_seq, seg, n_req, rows = 256, 32, 4, 40
     t0 = time.perf_counter()
     system = InferenceSystem(cfgs, params, alloc, combine="pallas",
@@ -343,7 +463,7 @@ def phase_end_to_end(torch, seed: int, smi: str, profile: bool = False):
         counters = system.serving_counters()
         stages = {k: v["total_s"] for k, v in system.stage_timings().items()}
         if profile:
-            profile_served(torch, system, X, n_req, rows)
+            profile_served(torch, system, X, n_req, rows, name)
         weights = [float(x) for x in system.accumulator.weights]
         workers = system.workers
         # plain reference on the card: each member's plain forward on the
@@ -367,12 +487,16 @@ def phase_end_to_end(torch, seed: int, smi: str, profile: bool = False):
                 ref_logits.append(lg.cpu().numpy())
     finally:
         system.shutdown()
+    # free this pair's device memory before the next one is built
+    del system, workers, w, tok, parts, lg, x
+    gc.collect()
+    torch.cuda.empty_cache()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     Y_ref = weights[0] * ref_logits[0] + weights[1] * ref_logits[1]
     if Y.shape != (n_req * rows, cfg0.vocab_size):
-        fail(f"Y shape {Y.shape}")
+        fail(f"{name}: Y shape {Y.shape}")
     if not np.isfinite(Y).all():
-        fail("non-finite Y")
+        fail(f"{name}: non-finite Y")
     atol = 1e-4 * max(1.0, float(np.abs(Y_ref).max()))
     # A logit of the int8 member on a rounding edge may flip its code by one
     # between the two paths, which moves that element of Y by exactly one
@@ -387,26 +511,32 @@ def phase_end_to_end(torch, seed: int, smi: str, profile: bool = False):
     flips = int((k != 0).sum())
     bad = (resid > atol) | (np.abs(k) > 1)
     if bad.any():
-        fail(f"Y vs plain reference: {int(bad.sum())} elements off by more "
-             f"than atol {atol:.3g} from a whole int8 step, max residual "
-             f"{resid.max():.3g}")
+        fail(f"{name}: Y vs plain reference: {int(bad.sum())} elements off "
+             f"by more than atol {atol:.3g} from a whole int8 step, max "
+             f"residual {resid.max():.3g}")
     if flips > MAX_FLIP_SHARE * Y.size:
-        fail(f"Y vs plain reference: {flips} int8 code flips, over "
+        fail(f"{name}: Y vs plain reference: {flips} int8 code flips, over "
              f"{MAX_FLIP_SHARE:.0%} of {Y.size} elements")
     if any(plain.values()):
-        fail(f"plain versions ran on the served path: {plain}")
-    # every dispatched chunk runs one flash launch per layer of its member
-    min_flash = cfg0.num_layers * math.ceil(n_req * rows / 16) + \
-        cfg1.num_layers * math.ceil(n_req * rows / 8)
-    if launches["flash_attention"] < min_flash:
-        fail(f"flash_attention launched {launches['flash_attention']} < "
-             f"{min_flash} times")
-    for name in ("ensemble_combine", "ensemble_combine_quant"):
-        if launches[name] < 1:
-            fail(f"{name} never launched on the served path")
-    emit({"phase": "end_to_end", "ok": True, "card": smi,
+        fail(f"{name}: plain versions ran on the served path: {plain}")
+    # every dispatched chunk runs its member's forward once: one flash launch
+    # per attention or hybrid layer, one scan launch per SSM or hybrid layer
+    minima = {"flash_attention": 0, "ssd_scan": 0}
+    for cfg, bs in zip(cfgs, batches):
+        chunks = math.ceil(n_req * rows / bs)
+        attn, scan = layer_counts(cfg)
+        minima["flash_attention"] += attn * chunks
+        minima["ssd_scan"] += scan * chunks
+    for kname, least in minima.items():
+        if launches[kname] < least or (least == 0 and launches[kname]):
+            fail(f"{name}: {kname} launched {launches[kname]} times, "
+                 f"expected {'at least ' + str(least) if least else 'none'}")
+    for kname in ("ensemble_combine", "ensemble_combine_quant"):
+        if launches[kname] < 1:
+            fail(f"{name}: {kname} never launched on the served path")
+    emit({"phase": f"end_to_end:{name}", "ok": True, "card": smi,
           "members": [c.name for c in cfgs], "member_dtypes": ["fp32", "int8"],
-          "allocation": [[16, 8]], "requests": n_req, "rows_per_request": rows,
+          "allocation": [batches], "requests": n_req, "rows_per_request": rows,
           "max_seq": max_seq, "segment_size": seg,
           "rows_per_s": n_req * rows / wall, "wall_s": wall,
           "latency_ms": lat_ms, "p50_ms": float(np.percentile(lat_ms, 50)),
@@ -416,7 +546,7 @@ def phase_end_to_end(torch, seed: int, smi: str, profile: bool = False):
           "max_abs_err": float(np.abs(diff).max()), "atol": atol,
           "max_residual": float(resid.max()), "int8_step_max": float(
               step.max()), "int8_flips": flips, "elements": int(Y.size),
-          "launches": launches, "plain_calls": plain,
+          "launches": launches, "launch_minima": minima, "plain_calls": plain,
           "batches": counters.get("batches"), "stage_total_s": stages,
           "padding_efficiency": counters.get("padding_efficiency")})
     return launches
@@ -426,7 +556,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="serve the requests a second time under "
+                    help="serve each pair's requests a second time under "
                          "torch.profiler and print device time by kernel")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -463,10 +593,16 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     kernels = [phase_flash(torch, gen, dev), phase_combine(torch, gen, dev),
-               phase_quant(torch, gen, dev)]
+               phase_quant(torch, gen, dev), phase_ssd(torch, gen, dev)]
 
-    # 4. end to end
-    launches = phase_end_to_end(torch, args.seed, smi, args.profile)
+    # 4. end to end, one member pair at a time; the launches of the main
+    # path are summed over the pairs' served runs
+    launches = {}
+    for name, int8_layers in PAIRS:
+        got = phase_pair(torch, name, int8_layers, args.seed, smi,
+                         args.profile)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
     for k in kernels:
         k["launches"] = launches[k["name"]]
     emit({"kernels": kernels})

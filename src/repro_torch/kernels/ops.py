@@ -14,6 +14,7 @@ import torch
 from repro_torch.kernels import ensemble_combine as _comb
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def pow2_clamp(n: int, lo: int, hi: int) -> int:
@@ -31,6 +32,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     scale = float(torch.tensor(hd ** -0.5, dtype=q.dtype))
     return _fa.flash_attention((q * scale).contiguous(), k.contiguous(),
                                v.contiguous(), causal=causal, window=window)
+
+
+def ssd_scan(x, dt, A, bmat, cmat, *, chunk: int = 64):
+    """x: (B,S,H,P), dt: (B,S,H), A: (H,), bmat/cmat: (B,S,N) -> (B,S,H,P).
+    No padding: the kernel masks a ragged last chunk itself."""
+    return _ssd.ssd_scan(x.contiguous(), dt.contiguous(), A.contiguous(),
+                         bmat.contiguous(), cmat.contiguous(), chunk=chunk)
 
 
 def ensemble_combine(preds, weights):
@@ -59,7 +67,8 @@ def ensemble_accumulate_quant(partial, q, scales, weights, *,
 
 def kernel_launches() -> Dict[str, int]:
     """Launches of each Hopper kernel since the last :func:`reset_counts`."""
-    return {**_fa.launches.snapshot(), **_comb.launches.snapshot()}
+    return {**_fa.launches.snapshot(), **_comb.launches.snapshot(),
+            **_ssd.launches.snapshot()}
 
 
 def plain_calls() -> Dict[str, int]:
@@ -70,4 +79,5 @@ def plain_calls() -> Dict[str, int]:
 def reset_counts() -> None:
     _fa.launches.reset()
     _comb.launches.reset()
+    _ssd.launches.reset()
     ref.calls.reset()

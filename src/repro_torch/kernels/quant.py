@@ -6,8 +6,13 @@ uses qmax=127; fp8 (``torch.float8_e4m3fn``) uses qmax=448 and stores the
 scaled value directly (the cast rounds).
 
 Quantized parameter trees wrap every leaf: ``{"q": int8/fp8, "s": f32
-scales}`` for matrices (ndim >= 2, quantized per output channel along the
-last axis), ``{"w": tensor}`` for 1-D leaves and for "fp32"/"bf16" members.
+scales}`` for every leaf with ndim >= 2 (one scale per slice along the last
+axis), ``{"w": tensor}`` for 1-D leaves and for "fp32"/"bf16" members.  Every
+layer leaf carries the leading ``repeats`` dim, so the per-layer vectors
+(``pre_norm``, ``mlp_norm``, ``q_norm``, ``k_norm`` and the SSM's ``A_log``,
+``dt_bias``, ``D``, ``norm``) are ``(repeats, n)`` and are quantized too, one
+scale per repeat; only ``final_norm`` stays in f32.  The JAX package does the
+same (its comment says otherwise), and the port matches it.
 The model forward reads wrapped leaves through :func:`leaf`, which
 dequantizes one matrix just before it is used, so the device holds only the
 narrow tree.

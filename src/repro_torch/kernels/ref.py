@@ -15,7 +15,7 @@ from repro_torch.kernels import Counter
 NEG_INF = -1e30
 
 calls = Counter("flash_attention", "ensemble_combine", "ensemble_accumulate",
-                "ensemble_accumulate_quant")
+                "ensemble_accumulate_quant", "ssd_scan")
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
@@ -41,6 +41,31 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                          torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqs,bshk->bqhk", probs, v.float()).to(q.dtype)
+
+
+def ssd_scan_ref(x, dt, A, bmat, cmat, *, chunk: int = 64) -> torch.Tensor:
+    """The chunked dual form of the Mamba2 scan, ``models.ssm.ssd_chunked``.
+    x: (B,S,H,P) f32, dt: (B,S,H) post-softplus, A: (H,) negative,
+    bmat/cmat: (B,S,N) -> y (B,S,H,P).  A ragged S is zero-padded to whole
+    chunks and cut back."""
+    calls.add("ssd_scan")
+    from repro_torch.models.ssm import ssd_chunked
+    return ssd_chunked(x, dt, A, bmat, cmat, chunk)
+
+
+def ssd_scan_sequential_ref(x, dt, A, bmat, cmat) -> torch.Tensor:
+    """The step-by-step recurrence, one position at a time (the ground
+    truth both chunked forms are held to)."""
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    hstate = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dt[:, t] * A[None, :])
+        hstate = hstate * decay[..., None, None] + torch.einsum(
+            "bh,bn,bhp->bhpn", dt[:, t], bmat[:, t], x[:, t])
+        ys.append(torch.einsum("bn,bhpn->bhp", cmat[:, t], hstate))
+    return torch.stack(ys, dim=1)
 
 
 def ensemble_combine_ref(preds, weights) -> torch.Tensor:

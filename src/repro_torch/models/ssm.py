@@ -1,0 +1,128 @@
+"""Mamba2 mixer, full-sequence forward (PyTorch port).
+
+Single B/C group, as in the JAX package (arXiv:2405.21060): in_proj ->
+[z, x, B, C, dt], a short causal depthwise conv over [x, B, C], softplus dt,
+a scalar A per head, the chunked dual form of the scan (intra-chunk
+attention-like term plus the inter-chunk state recurrence), gated RMSNorm,
+out_proj.
+
+``ssd_chunked`` here is also the plain version of the ``ssd_scan`` kernel
+(``kernels.ref.ssd_scan_ref`` calls it).  The prefill state handoff
+(``ssd_final_state``) and the one-token decode step belong to the generation
+path and are not ported yet (ROADMAP Queue 1 item 11).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import rms_norm
+
+
+def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
+    di, n, h = cfg.d_inner, cfg.ssm.d_state, cfg.ssm_heads
+    return torch.split(zxbcdt, [di, di, n, n, h], dim=-1)
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv.  xbc: (B,S,C), w: (K,C).  The K shifted
+    products are summed in the JAX package's order (not ``F.conv1d``)."""
+    k, s = w.shape[0], xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    out = sum(pad[:, i:i + s, :] * w[i] for i in range(k))
+    return F.silu(out)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + e^x) at every x.  ``F.softplus`` returns
+    x itself above its threshold of 20."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def segsum_exp(dA_cs: torch.Tensor) -> torch.Tensor:
+    """L[..., i, j] = exp(cs_i - cs_j) for i >= j else 0.  dA_cs: (..., cl).
+    The exponent is taken only on the lower triangle (-inf elsewhere), so no
+    overflow is ever formed."""
+    cl = dA_cs.shape[-1]
+    diff = dA_cs[..., :, None] - dA_cs[..., None, :]
+    mask = torch.tril(torch.ones((cl, cl), dtype=torch.bool,
+                                 device=dA_cs.device))
+    return torch.exp(diff.masked_fill(~mask, float("-inf")))
+
+
+def ssd_chunked(x, dt, A, bmat, cmat, chunk: int) -> torch.Tensor:
+    """The SSD dual-form scan.  x: (B,S,H,P) f32, dt: (B,S,H) post-softplus,
+    A: (H,) negative, bmat/cmat: (B,S,N).  Returns y: (B,S,H,P).
+
+    ``dt·x`` is formed before the contractions, so no (b, c, h, i, j, p)
+    intermediate is built; the inter-chunk recurrence is a Python loop over
+    chunks."""
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        bmat = F.pad(bmat, (0, 0, 0, pad))
+        cmat = F.pad(cmat, (0, 0, 0, pad))
+    nc = x.shape[1] // chunk
+    xc = x.reshape(b, nc, chunk, h, p)
+    dtc = dt.reshape(b, nc, chunk, h)
+    bc = bmat.reshape(b, nc, chunk, n)
+    cc = cmat.reshape(b, nc, chunk, n)
+
+    cs = torch.cumsum(dtc * A, dim=2)                   # (b,nc,cl,h)
+    xdt = xc * dtc[..., None]                           # (b,nc,cl,h,p)
+    # intra-chunk (attention-like) term
+    L = segsum_exp(cs.transpose(2, 3))                  # (b,nc,h,cl,cl)
+    scores = torch.einsum("bcin,bcjn->bcij", cc, bc)    # (b,nc,cl,cl)
+    gated = scores[:, :, None] * L                      # (b,nc,h,cl,cl)
+    y_intra = torch.einsum("bchij,bcjhp->bcihp", gated, xdt)
+    # per-chunk final states
+    decay_to_end = torch.exp(cs[:, :, -1:, :] - cs)     # (b,nc,cl,h)
+    states = torch.einsum("bcjn,bcjhp->bchpn", bc,
+                          xdt * decay_to_end[..., None])  # (b,nc,h,p,n)
+    # inter-chunk recurrence: the state entering each chunk
+    chunk_decay = torch.exp(cs[:, :, -1, :])            # (b,nc,h)
+    hstate = torch.zeros((b, h, p, n), dtype=x.dtype, device=x.device)
+    hprevs = []
+    for c in range(nc):
+        hprevs.append(hstate)
+        hstate = hstate * chunk_decay[:, c, :, None, None] + states[:, c]
+    hprevs = torch.stack(hprevs, dim=1)                 # (b,nc,h,p,n)
+    y_inter = torch.einsum("bcin,bchpn->bcihp", cc, hprevs) * \
+        torch.exp(cs)[..., None]
+    y = (y_intra + y_inter).reshape(b, nc * chunk, h, p)
+    return y[:, :s]
+
+
+def _gated_norm(y, z, w, eps):
+    """RMS norm over all of d_inner of ``y·silu(z)``, with a (1 + w) gain."""
+    return rms_norm(y * F.silu(z), w, eps)
+
+
+def ssm_mixer(cfg: ModelConfig, p, xin: torch.Tensor, *,
+              use_kernel: bool = False) -> torch.Tensor:
+    """Full-sequence Mamba2 mixer.  xin: (B,S,D) -> (B,S,D).  ``use_kernel``
+    runs the scan through ``kernels.ops.ssd_scan`` (the Hopper kernel for
+    CUDA tensors, its plain version for CPU tensors)."""
+    s = cfg.ssm
+    zxbcdt = torch.einsum("bsd,de->bse", xin, p["in_proj"])
+    z, x, bmat, cmat, dt = _split_proj(cfg, zxbcdt)
+    xbc = _causal_conv(torch.cat([x, bmat, cmat], -1), p["conv_w"])
+    di, n = cfg.d_inner, s.d_state
+    x, bmat, cmat = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
+    bsz, slen = xin.shape[0], xin.shape[1]
+    x = x.reshape(bsz, slen, cfg.ssm_heads, s.head_dim).float()
+    dt = softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"].float())
+    if use_kernel:
+        from repro_torch.kernels import ops as kops
+        y = kops.ssd_scan(x, dt, A, bmat.float(), cmat.float(), chunk=s.chunk)
+    else:
+        y = ssd_chunked(x, dt, A, bmat.float(), cmat.float(), s.chunk)
+    y = y + x * p["D"][None, None, :, None]
+    y = y.reshape(bsz, slen, di).to(xin.dtype)
+    y = _gated_norm(y, z, p["norm"], cfg.norm_eps)
+    return torch.einsum("bse,ed->bsd", y, p["out_proj"])

@@ -8,9 +8,10 @@ Python loop over repeats.  A parameter leaf may be wrapped by
 dequantizes one layer's matrices just before that layer runs, so a quantized
 member keeps only its narrow tree on the device.
 
-This slice serves ``ATTN`` and ``SWA`` layers with a dense SwiGLU MLP.  The
-other layer kinds raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+This slice serves ``ATTN``, ``SWA``, ``SSM`` (Mamba2 mixer, no MLP when
+``d_ff == 0``) and ``HYBRID`` (attention and the SSM mixer in parallel,
+averaged) layers with a dense SwiGLU MLP.  Cross-attention and MoE layers
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 
 Public API:
     param_shapes(cfg)                              -> tree of shapes
@@ -29,13 +30,11 @@ import torch
 from repro_torch.configs.base import ATTN, CROSS, HYBRID, SSM, SWA, ModelConfig
 from repro_torch.kernels.quant import dequantize, leaf
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import embed, rms_norm, swiglu, unembed
 
 _NOT_PORTED = {
     CROSS: "cross-attention (ROADMAP Queue 1 item 13)",
-    SSM: "the SSM mixer and the ssd_scan kernel (ROADMAP Queue 1 item 12)",
-    HYBRID: "the hybrid mixer and the ssd_scan kernel (ROADMAP Queue 1 "
-            "item 12)",
 }
 
 
@@ -163,9 +162,20 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
 def _apply_layer(cfg: ModelConfig, kind: str, lp, x, positions,
                  use_kernel: bool):
     h = rms_norm(x, lp["pre_norm"], cfg.norm_eps)
-    window = 0 if kind == ATTN else cfg.sliding_window
-    x = x + attn_mod.self_attention(cfg, lp, h, positions, window=window,
+    if kind in (ATTN, SWA):
+        window = 0 if kind == ATTN else cfg.sliding_window
+        x = x + attn_mod.self_attention(cfg, lp, h, positions, window=window,
+                                        use_kernel=use_kernel)
+    elif kind == SSM:
+        x = x + ssm_mod.ssm_mixer(cfg, lp, h, use_kernel=use_kernel)
+    elif kind == HYBRID:
+        a = attn_mod.self_attention(cfg, lp, h, positions,
+                                    window=cfg.sliding_window,
                                     use_kernel=use_kernel)
+        m = ssm_mod.ssm_mixer(cfg, lp, h, use_kernel=use_kernel)
+        x = x + 0.5 * (a + m)
+    else:
+        raise ValueError(kind)
     if cfg.d_ff > 0:
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
         x = x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])

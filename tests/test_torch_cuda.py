@@ -15,6 +15,7 @@ from repro_torch.kernels import ensemble_combine as ec  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import quant as kq  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -97,6 +98,47 @@ def test_quant_kernel_matches_plain(dev, qdtype, m, seg, c):
                                atol=1e-4, rtol=1e-4)
 
 
+SSD_CASES = [                  # (b, s, h, p, n, chunk)
+    (2, 64, 4, 32, 16, 16),
+    (1, 128, 8, 64, 32, 32),
+    (2, 100, 4, 32, 16, 16),   # ragged S
+    (1, 64, 2, 64, 128, 64),   # the mamba2 state, N = 128
+    (2, 150, 3, 64, 128, 64),  # ragged S with the mamba2 state
+]
+
+
+def _ssd_inputs(dev, b, s, h, p, n):
+    x = _randn(dev, 1, b, s, h, p)
+    dt = torch.nn.functional.softplus(_randn(dev, 2, b, s, h))
+    A = -torch.exp(_randn(dev, 3, h) * 0.5)
+    return x, dt, A, _randn(dev, 4, b, s, n), _randn(dev, 5, b, s, n)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_CASES)
+def test_ssd_kernel_matches_plain(dev, b, s, h, p, n, chunk):
+    x, dt, A, bm, cm = _ssd_inputs(dev, b, s, h, p, n)
+    before = ssd.launches.snapshot()["ssd_scan"]
+    got = ssd.ssd_scan(x, dt, A, bm, cm, chunk=chunk)
+    want = ref.ssd_scan_ref(x, dt, A, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.launches.snapshot()["ssd_scan"] == before + 1
+    tol = 1e-4 * max(1.0, want.abs().max().item())
+    torch.testing.assert_close(got, want, atol=tol, rtol=1e-4)
+
+
+def test_ssd_kernel_takes_unaligned_inputs(dev):
+    """Contiguous views one float past an aligned base take the kernel's
+    scalar loads and stores."""
+    b, s, h, p, n = 1, 70, 2, 32, 16
+    x, dt, A, bm, cm = _ssd_inputs(dev, b, s, h, p, n)
+    x, bm, cm = (_randn(dev, 6, t.numel() + 1)[1:].view(t.shape)
+                 for t in (x, bm, cm))
+    got = ssd.ssd_scan(x, dt, A, bm, cm, chunk=16)
+    want = ref.ssd_scan_ref(x, dt, A, bm, cm, chunk=16)
+    tol = 1e-4 * max(1.0, want.abs().max().item())
+    torch.testing.assert_close(got, want, atol=tol, rtol=1e-4)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     q = torch.zeros((1, 8, 4, 32), device=dev)
     with pytest.raises(ValueError):
@@ -109,28 +151,32 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         ec.ensemble_combine(torch.zeros((1, 4, 8), device=dev),
                             torch.ones(1))               # mixed devices
+    x, dt, A, bm, cm = _ssd_inputs(dev, 1, 16, 2, 6, 16)
+    with pytest.raises(ValueError):                      # P % 4 != 0
+        ssd.ssd_scan(x, dt, A, bm, cm, chunk=16)
+    with pytest.raises(TypeError):
+        ssd.ssd_scan(x.double(), dt, A, bm, cm, chunk=16)
 
 
-def test_served_ensemble_goes_through_the_kernels(dev):
-    from repro_torch.configs import ensemble
+def _serve(dev, cfgs, X, alloc_row):
+    """Serve ``X`` through the kernels (an fp32 and an int8 member, pallas
+    combine) and hold ``Y`` to the members' plain forwards on the card.
+    Returns the kernel launches of the served run."""
     from repro_torch.core import AllocationMatrix, cuda_devices
     from repro_torch.models import init_params
     from repro_torch.models.transformer import hidden, logits_from_hidden
     from repro_torch.serving import InferenceSystem
 
-    cfgs = ensemble("ENS4")[:2]
     params = [init_params(c, seed=i, device=dev) for i, c in enumerate(cfgs)]
     alloc = AllocationMatrix(cuda_devices()[:1], [c.name for c in cfgs],
-                             np.array([[8, 16]]))
-    X = np.random.default_rng(0).integers(0, 512, (40, 16)).astype(np.int32)
-    with InferenceSystem(cfgs, params, alloc, max_seq=16, segment_size=16,
-                         combine="pallas", use_kernel=True,
+                             np.array([alloc_row]))
+    with InferenceSystem(cfgs, params, alloc, max_seq=X.shape[1],
+                         segment_size=16, combine="pallas", use_kernel=True,
                          member_dtypes=["fp32", "int8"]) as s:
         ops.reset_counts()
         Y = s.predict(X)
         launches, plain = ops.kernel_launches(), ops.plain_calls()
         wparams = [w.params for w in s.workers]
-    assert all(launches.values()), launches
     assert not any(plain.values()), plain
     tok = torch.from_numpy(X).to(dev)
     want = np.zeros_like(Y)
@@ -144,3 +190,26 @@ def test_served_ensemble_goes_through_the_kernels(dev):
                 lg, scale = kq.dequantize(qv, sv), sv.cpu().numpy()
             want += 0.5 * lg.cpu().numpy()
     assert (np.abs(Y - want) <= 1e-4 + 0.5 * scale).all()
+    return launches
+
+
+def test_served_ensemble_goes_through_the_kernels(dev):
+    from repro_torch.configs import ensemble
+    X = np.random.default_rng(0).integers(0, 512, (40, 16)).astype(np.int32)
+    launches = _serve(dev, ensemble("ENS4")[:2], X, [8, 16])
+    assert launches.pop("ssd_scan") == 0          # attention members only
+    assert all(launches.values()), launches
+
+
+def test_served_ssm_and_hybrid_ensemble_goes_through_the_kernels(dev):
+    """hymba (attention + SSM in every layer) in fp32 and mamba2 (SSM only)
+    in int8: every kernel launches, the scan once per SSM layer per chunk."""
+    from repro_torch.configs import ensemble
+    cfgs = ensemble("ENS12")[5:7]
+    X = np.random.default_rng(1).integers(0, 512, (40, 72)).astype(np.int32)
+    launches = _serve(dev, cfgs, X, [16, 8])
+    assert all(launches.values()), launches
+    chunks = [-(-40 // 16), -(-40 // 8)]
+    assert launches["ssd_scan"] >= sum(
+        c.num_layers * k for c, k in zip(cfgs, chunks))
+    assert launches["flash_attention"] >= cfgs[0].num_layers * chunks[0]

@@ -90,8 +90,6 @@ def test_init_params_runs_on_the_card_unless_asked():
 
 
 @pytest.mark.parametrize("name", ["granite-moe-3b-a800m-reduced",
-                                  "mamba2-1.3b-reduced",
-                                  "hymba-1.5b-reduced",
                                   "llama-3.2-vision-11b-reduced"])
 def test_unported_layer_kinds_raise(name):
     cfg = get_config(name)

@@ -131,6 +131,67 @@ def test_int8_member_matches_jax_system(ens2):
     assert (k != 0).mean() <= 0.01
 
 
+@pytest.fixture(scope="module")
+def ens_ssm():
+    """ENS12 members 5 and 6: hymba (attention + SSM in every layer) and
+    mamba2 (SSM only, no MLP); they share 512 classes."""
+    jcfgs = jensemble("ENS12")[5:7]
+    rng = jax.random.PRNGKey(1)
+    jparams = [M.init_params(jax.random.fold_in(rng, i), c)
+               for i, c in enumerate(jcfgs)]
+    tparams = [params_from_numpy(jax.tree_util.tree_map(np.asarray, p), "cpu")
+               for p in jparams]
+    return jcfgs, ensemble("ENS12")[5:7], jparams, tparams
+
+
+@pytest.mark.parametrize("combine", ["mean", "pallas"])
+def test_ssm_and_hybrid_members_match_jax_oracle(ens_ssm, combine):
+    jcfgs, tcfgs, jparams, tparams = ens_ssm
+    X = _X(40, seed=8)
+    ops.reset_counts()
+    with make_system(tcfgs, tparams, [[16, 8]], combine=combine,
+                     use_kernel=True, segment_size=16) as s:
+        Y = s.predict(X)
+    np.testing.assert_allclose(Y, oracle(jcfgs, jparams, X), atol=2e-5)
+    calls = ops.plain_calls()
+    # every chunk of each member runs the scan once per layer; only hymba
+    # runs attention
+    assert calls["ssd_scan"] >= sum(c.num_layers for c in tcfgs) * 3
+    assert calls["flash_attention"] >= tcfgs[0].num_layers * 3
+    assert (calls["ensemble_accumulate"] > 0) == (combine == "pallas")
+
+
+def test_int8_ssm_member_matches_jax_system(ens_ssm):
+    """hymba fp32 + mamba2 int8 (A_log, dt_bias, D and norm quantized per
+    repeat, as in the reference) under 'pallas' against the JAX system with
+    the same settings, to whole int8 steps as in
+    test_int8_member_matches_jax_system."""
+    jcfgs, tcfgs, jparams, tparams = ens_ssm
+    X = _X(40, seed=9)
+    kw = dict(segment_size=16, combine="pallas",
+              member_dtypes=["fp32", "int8"])
+    ops.reset_counts()
+    with make_system(tcfgs, tparams, [[8, 16]], use_kernel=True, **kw) as s:
+        Y = s.predict(X)
+    assert ops.plain_calls()["ensemble_accumulate_quant"] > 0
+    assert ops.plain_calls()["ssd_scan"] > 0
+    devs = jhost_cpus(1, memory_bytes=8 * 1024 ** 3)
+    alloc = JAllocationMatrix(devs, [c.name for c in jcfgs],
+                              np.array([[8, 16]]))
+    with JInferenceSystem(jcfgs, jparams, alloc, max_seq=SEQ, **kw) as js:
+        Yj = js.predict(X)
+    from repro.kernels import quant as jq
+    lg, _ = M.forward(jq.dequantize_params(jq.quantize_params(jparams[1],
+                                                              "int8")),
+                      jcfgs[1], jnp.asarray(X))
+    _, scale = jq.quantize_symmetric(lg[:, -1, :jcfgs[1].vocab_size], axis=-1)
+    step = 0.5 * np.asarray(scale)
+    k = np.rint((Y - Yj) / step)
+    assert (np.abs(k) <= 1).all()
+    assert (np.abs(Y - Yj - k * step) <= 2e-5).all()
+    assert (k != 0).mean() <= 0.01
+
+
 def test_concurrent_requests_coalesce(ens2):
     jcfgs, tcfgs, jparams, tparams = ens2
     X = _X(80, seed=6)
