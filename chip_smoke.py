@@ -9,7 +9,7 @@ Phases, one JSON line each; any failed phase exits non-zero:
    convolutions (the references are full f32);
 2. build: the Hopper kernels from ``src/repro_torch/kernels/csrc``;
 3. one phase per kernel: the kernel against its plain PyTorch version on the
-   card over the JAX test suite's cases and the serving path's shapes, with
+   card over the JAX test suite's cases and the main path's shapes, with
    the stated tolerance, and its time beside the plain version's, the
    library call's (a yardstick only, the port never calls it) and its bound;
 4. end to end at full width, one phase per member pair: ``InferenceSystem``
@@ -22,7 +22,18 @@ Phases, one JSON line each; any failed phase exits non-zero:
    counts must show that each attention or hybrid layer ran the flash kernel
    and each SSM or hybrid layer the scan kernel once per chunk, that the
    combine kernels ran, and that no plain version did.  Each system is shut
-   down and its memory freed before the next pair.
+   down and its memory freed before the next pair;
+5. generation at full width, one phase per model: ``prefill`` of a random
+   prompt and 64 greedy ``decode_step``s with ``use_kernel=True``, batch
+   16, fp32, random weights from ``--seed``: qwen3-1.7b (1024-token prompt,
+   2048 slots), hymba-1.5b (992 tokens, 2048 slots: the 1024-slot window
+   ring wraps), mamba2-1.3b (512 tokens, 1024 slots) and hymba-1.5b again
+   with an int8 KV cache, teacher-forced on the fp32 run's tokens.  The
+   logits are held against the plain forward of prompt + generated tokens
+   and against the plain decode path, the int8 run's against the fp32
+   run's; the launch counts must show one decode-attention launch per
+   attention or hybrid layer per step (none with the int8 cache), one scan
+   per SSM or hybrid layer of the prefill, and no plain version.
 
 The line before the last holds the card's name and power limit; before it,
 the per-kernel summary line.  The last line is ``{"ok": true, "device":
@@ -78,6 +89,20 @@ SSD_CASES = [                  # (b, s, h, p, n, chunk) — JAX suite
     (16, 256, 64, 64, 128, 64),  # serving path, mamba2 member-0 chunk
     (16, 256, 50, 64, 16, 64),   # serving path, hymba member-0 chunk
 ]
+DECODE_CASES = [              # (b, L, h, kv, hd, dtype, valid slots)
+    (2, 64, 4, 2, 32, "float32", "tail"),       # JAX suite: L-7 valid
+    (1, 300, 8, 2, 80, "float32", "tail"),
+    (3, 1024, 4, 1, 128, "float32", "tail"),
+    (2, 128, 4, 4, 64, "bfloat16", "tail"),
+    (16, 2048, 16, 8, 128, "float32", "prefix"),  # qwen3's last step: 0..1087
+    (16, 2048, 16, 8, 128, "bfloat16", "prefix"),
+    (16, 1024, 25, 5, 64, "float32", "all"),      # hymba's full ring
+    (16, 1024, 4, 1, 256, "float32", "all"),      # gemma3's hd 256
+    (4, 2048, 16, 8, 128, "float32", "leading"),  # first 600 slots invalid
+    (4, 2048, 16, 8, 128, "float32", "random"),
+]
+MAIN_DECODE = (16, 2048, 16, 8, 128)
+MAIN_DECODE_VALID = 1088
 MAIN_FLASH = (16, 256, 16, 8, 128)
 MAIN_SEG, MAIN_C = 32, 151936
 MAIN_SSD = (16, 256, 64, 64, 128, 64)
@@ -284,6 +309,69 @@ def phase_quant(torch, gen, dev):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def decode_valid(torch, kind: str, L: int, gen, dev):
+    pos = torch.arange(L, device=dev)
+    if kind == "tail":
+        return pos < L - 7
+    if kind == "prefix":
+        return pos < MAIN_DECODE_VALID
+    if kind == "leading":
+        return pos >= 600
+    if kind == "random":
+        return torch.rand((L,), generator=gen, device=dev) < 0.5
+    return torch.ones((L,), dtype=torch.bool, device=dev)
+
+
+def phase_decode(torch, gen, dev):
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    cases = []
+    main = None
+    for b, L, h, kv, hd, dt, kind in DECODE_CASES:
+        dtype = getattr(torch, dt)
+        q = torch.randn((b, 1, h, hd), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, L, kv, hd), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, L, kv, hd), generator=gen, device=dev).to(dtype)
+        valid = decode_valid(torch, kind, L, gen, dev)
+        scale = float(torch.tensor(hd ** -0.5, dtype=dtype))
+        qs = (q * scale).contiguous()
+        out = da.decode_attention(qs, k, v, valid)
+        want = ref.decode_attention_ref(qs, k, v, valid, scale=1.0)
+        torch.cuda.synchronize()
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        err = close(torch, out, want, tol)
+        cases.append({"shape": [b, L, h, kv, hd], "dtype": dt, "valid": kind,
+                      "n_valid": int(valid.sum().item()),
+                      "max_abs_err": err, "tol": tol})
+        if (b, L, h, kv, hd) == MAIN_DECODE and dtype == torch.float32:
+            main = (qs, k, v, valid, err)
+    qs, k, v, valid, err = main
+    b, L, h, kv, hd = MAIN_DECODE
+    ms = time_ms(torch, lambda: da.decode_attention(qs, k, v, valid))
+    plain_ms = time_ms(torch, lambda: ref.decode_attention_ref(
+        qs, k, v, valid, scale=1.0))
+    # library yardstick: one SDPA call on the same inputs with the kv heads
+    # expanded and the mask as attn_mask (never used by the port)
+    import torch.nn.functional as F
+    qt = qs.transpose(1, 2)
+    kt, vt = (t.repeat_interleave(h // kv, dim=2).transpose(1, 2)
+              for t in (k, v))
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=valid[None, None, None, :], scale=1.0))
+    n_valid = int(valid.sum().item())
+    nbytes = 4 * (2 * b * n_valid * kv * hd + 2 * b * h * hd) + L
+    bound_ms, bound_by = bound(nbytes, 4.0 * b * h * n_valid * hd, F32_FLOPS)
+    emit({"phase": "kernel:decode_attention", "cases": cases, "ok": True,
+          "main_shape": list(MAIN_DECODE), "main_valid": n_valid, "ms": ms,
+          "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+          "bound_by": bound_by, "bytes": nbytes})
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:76",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
 def ssd_work(b, s, h, p, n, chunk):
     """(bytes, flops) the scan must move and do at this shape: x and y once,
     dt, A, B and C once; multiply-adds of the lower-triangular scores (once
@@ -387,18 +475,27 @@ def profile_served(torch, system, X, n_req: int, rows: int,
         serve(system, X, n_req, rows)
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
+    emit({"phase": f"profile:{pair}", **device_time(prof, window)})
+
+
+def device_time(prof, window: float) -> dict:
+    """Device busy time, its share of the profiled window and the top 15
+    kernels, from the device-side events only: an aten op's own entry
+    repeats the device time of the kernels it launched, so summing every
+    entry would count those kernels twice."""
+    from torch.autograd import DeviceType
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
-    kernels = [e for e in prof.key_averages() if dev_us(e) > 0]
+    kernels = [e for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU and dev_us(e) > 0]
     busy_us = sum(dev_us(e) for e in kernels)
     top = sorted(kernels, key=dev_us, reverse=True)[:15]
-    emit({"phase": f"profile:{pair}", "window_s": window,
-          "device_busy_s": busy_us * 1e-6,
-          "device_busy_share": busy_us * 1e-6 / window,
-          "top": [{"name": e.key[:90], "device_ms": dev_us(e) * 1e-3,
-                   "calls": e.count} for e in top]})
+    return {"window_s": window, "device_busy_s": busy_us * 1e-6,
+            "device_busy_share": busy_us * 1e-6 / window,
+            "top": [{"name": e.key[:90], "device_ms": dev_us(e) * 1e-3,
+                     "calls": e.count} for e in top]}
 
 
 PAIRS = [                      # (fp32 member, layers of the int8 member)
@@ -552,12 +649,195 @@ def phase_pair(torch, name: str, int8_layers: int, seed: int, smi: str,
     return launches
 
 
+GEN_PHASES = [                 # (model, prompt, cache slots, int8 KV cache)
+    ("qwen3-1.7b", 1024, 2048, False),
+    ("hymba-1.5b", 992, 2048, False),
+    ("mamba2-1.3b", 512, 1024, False),
+    ("hymba-1.5b", 992, 2048, True),
+]
+GEN_BATCH, GEN_STEPS = 16, 64
+PROFILE_STEPS = 8
+
+
+def generate(torch, params, cfg, prompt, max_len: int, *, use_kernel: bool,
+             int8_kv: bool = False, forced=None) -> dict:
+    """prefill + GEN_STEPS decode steps, greedy over the real vocabulary
+    unless ``forced`` (B, GEN_STEPS) gives the tokens.  Returns the logits
+    of the prefill and of every step (GEN_STEPS + 1, B, V), the tokens fed,
+    the prefill's seconds, each step's ms (CUDA events) and the decode
+    wall time, and the cache."""
+    from repro_torch.models import decode_step, prefill
+    V, s0 = cfg.vocab_size, prompt.shape[1]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = prefill(params, cfg, prompt, max_len,
+                            use_kernel=use_kernel, quantize_cache=int8_kv)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        logits, toks = [lg[:, :V]], []
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(GEN_STEPS + 1)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        for t in range(GEN_STEPS):
+            tok = (forced[:, t:t + 1] if forced is not None else
+                   logits[-1].argmax(-1, keepdim=True).int())
+            toks.append(tok)
+            lg, cache = decode_step(params, cfg, cache, tok, s0 + t,
+                                    use_kernel=use_kernel)
+            logits.append(lg[:, :V])
+            ev[t + 1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return {"logits": torch.stack(logits), "tokens": torch.cat(toks, 1),
+            "prefill_s": prefill_s, "wall_s": wall, "cache": cache,
+            "step_ms": [ev[i].elapsed_time(ev[i + 1])
+                        for i in range(GEN_STEPS)]}
+
+
+def profile_decode(torch, params, cfg, cache, token, pos: int,
+                   name: str) -> None:
+    """PROFILE_STEPS more decode steps under torch.profiler: device time by
+    kernel and the device's busy share of the window."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import decode_step
+    torch.cuda.synchronize()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(PROFILE_STEPS):
+            decode_step(params, cfg, cache, token, pos + t, use_kernel=True)
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    emit({"phase": f"profile:generate:{name}", "steps": PROFILE_STEPS,
+          **device_time(prof, window)})
+
+
+def max_err(torch, got, want):
+    """(max |got - want|, tolerance scale max(1, max |want|))."""
+    return ((got.float() - want.float()).abs().max().item(),
+            max(1.0, want.float().abs().max().item()))
+
+
+def phase_generate(torch, name: str, prompt_len: int, max_len: int,
+                   int8_kv: bool, seed: int, smi: str, profile: bool = False,
+                   fp32_run=None):
+    """Generate with ``name`` at its full configuration (see the module
+    docstring).  ``fp32_run`` (tokens, logits) of the same model is what an
+    int8-KV run is teacher-forced on and held to.  Returns (launches, the
+    run's tokens and logits on the host)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import hidden, logits_from_hidden
+
+    import numpy as np
+    label = name + (":int8-kv" if int8_kv else "")
+    dev = torch.device("cuda", 0)
+    cfg = get_config(name)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    prompt = torch.randint(0, cfg.vocab_size, (GEN_BATCH, prompt_len),
+                           generator=gen, device=dev, dtype=torch.int32)
+    params = init_params(cfg, seed, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    forced = None if fp32_run is None else fp32_run[0].to(dev)
+
+    ops.reset_counts()                    # counts cover the kernel run
+    run = generate(torch, params, cfg, prompt, max_len, use_kernel=True,
+                   int8_kv=int8_kv, forced=forced)
+    launches, plain = ops.kernel_launches(), ops.plain_calls()
+    cache = run.pop("cache")
+    cache_gb = tree_bytes(cache) / 1e9
+    kv_dtypes = sorted({str(e[n].dtype) for e in cache["layers"]
+                        for n in ("k", "v") if n in e})
+    if profile:
+        last = run["logits"][-1].argmax(-1, keepdim=True).int()
+        profile_decode(torch, params, cfg, cache, last,
+                       prompt_len + GEN_STEPS, label)
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    logits, tokens = run.pop("logits"), run["tokens"]
+    if logits.shape != (GEN_STEPS + 1, GEN_BATCH, cfg.vocab_size):
+        fail(f"{label}: logits shape {tuple(logits.shape)}")
+    if not torch.isfinite(logits).all():
+        fail(f"{label}: non-finite logits")
+
+    errors = {}
+    if fp32_run is None:
+        # the plain forward of prompt + generated tokens, at the positions
+        # whose logits the run produced
+        with torch.no_grad():
+            seq = torch.cat([prompt, tokens], 1)
+            x = hidden(params, cfg, seq, use_kernel=False)
+            x = x[:, prompt_len - 1:prompt_len + GEN_STEPS]
+            want = logits_from_hidden(params, cfg, x)[..., :cfg.vocab_size]
+            want = want.transpose(0, 1)
+            del x
+        err, scale = max_err(torch, logits, want)
+        errors["plain_forward"] = {"max_abs_err": err, "tol": 1e-3 * scale}
+        del want
+        # the plain decode path on the same tokens, from a fresh prefill
+        plain_run = generate(torch, params, cfg, prompt, max_len,
+                             use_kernel=False, forced=tokens)
+        del plain_run["cache"]
+        err, scale = max_err(torch, logits, plain_run["logits"])
+        errors["plain_decode"] = {"max_abs_err": err, "tol": 1e-4 * scale}
+        plain_steps = plain_run["step_ms"]
+        del plain_run
+    else:
+        err, scale = max_err(torch, logits, fp32_run[1].to(dev))
+        errors["fp32_kv_run"] = {"max_abs_err": err, "tol": 0.05 * scale}
+        plain_steps = None
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    host = (tokens.cpu(), logits.cpu())
+    del params, logits, prompt, forced
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for what, e in errors.items():
+        if not e["max_abs_err"] <= e["tol"]:
+            fail(f"{label}: logits vs {what}: {e['max_abs_err']:.3g} over "
+                 f"tolerance {e['tol']:.3g}")
+    if any(plain.values()):
+        fail(f"{label}: plain versions ran in the kernel run: {plain}")
+    attn, scan = layer_counts(cfg)
+    want_launches = {"decode_attention": 0 if int8_kv else attn * GEN_STEPS,
+                     "ssd_scan": scan, "flash_attention": 0,
+                     "ensemble_combine": 0, "ensemble_combine_quant": 0}
+    if launches != want_launches:
+        fail(f"{label}: launches {launches}, expected {want_launches}")
+    if int8_kv and kv_dtypes != ["torch.int8"]:
+        fail(f"{label}: the cache's k/v are {kv_dtypes} at the end, not int8")
+    steps = np.array(run["step_ms"])
+    out = {"phase": f"generate:{label}", "ok": True, "card": smi,
+           "batch": GEN_BATCH, "prompt": prompt_len, "max_len": max_len,
+           "steps": GEN_STEPS, "use_kernel": True, "int8_kv": int8_kv,
+           "prefill_s": run["prefill_s"],
+           "decode_ms_p50": float(np.percentile(steps, 50)),
+           "decode_ms_p90": float(np.percentile(steps, 90)),
+           "decode_tokens_per_s": GEN_BATCH * GEN_STEPS / run["wall_s"],
+           "decode_wall_s": run["wall_s"], "cache_gb": cache_gb,
+           "kv_dtypes": kv_dtypes, "peak_device_gb": peak_gb,
+           "errors": errors, "launches": launches,
+           "expected_launches": want_launches, "plain_calls": plain}
+    if plain_steps is not None:
+        out["plain_decode_ms_p50"] = float(np.percentile(plain_steps, 50))
+    emit(out)
+    return launches, host
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="serve each pair's requests a second time under "
-                         "torch.profiler and print device time by kernel")
+                    help="serve each pair's requests a second time, and run "
+                         "a few more decode steps of each generation phase, "
+                         "under torch.profiler and print device time by "
+                         "kernel")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script",
@@ -593,14 +873,26 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     kernels = [phase_flash(torch, gen, dev), phase_combine(torch, gen, dev),
-               phase_quant(torch, gen, dev), phase_ssd(torch, gen, dev)]
+               phase_quant(torch, gen, dev), phase_ssd(torch, gen, dev),
+               phase_decode(torch, gen, dev)]
 
     # 4. end to end, one member pair at a time; the launches of the main
-    # path are summed over the pairs' served runs
+    # paths are summed over the pairs' served runs and the generation runs
     launches = {}
     for name, int8_layers in PAIRS:
         got = phase_pair(torch, name, int8_layers, args.seed, smi,
                          args.profile)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # 5. generation, one model at a time; its launches join the sums
+    fp32_runs = {}
+    for name, prompt_len, max_len, int8_kv in GEN_PHASES:
+        got, host = phase_generate(torch, name, prompt_len, max_len, int8_kv,
+                                   args.seed, smi, args.profile,
+                                   fp32_runs.get(name) if int8_kv else None)
+        if not int8_kv:
+            fp32_runs[name] = host
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
     for k in kernels:

@@ -11,6 +11,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import ensemble_combine as _comb
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
@@ -32,6 +33,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     scale = float(torch.tensor(hd ** -0.5, dtype=q.dtype))
     return _fa.flash_attention((q * scale).contiguous(), k.contiguous(),
                                v.contiguous(), causal=causal, window=window)
+
+
+def decode_attention(q, k, v, valid):
+    """q: (B,1,H,hd), k/v: (B,L,KV,hd), valid: (L,) bool -> (B,1,H,hd);
+    scale 1/sqrt(hd).  q is scaled in its own dtype as in
+    :func:`flash_attention`; neither L nor hd is padded."""
+    hd = q.shape[3]
+    scale = float(torch.tensor(hd ** -0.5, dtype=q.dtype))
+    return _dec.decode_attention((q * scale).contiguous(), k.contiguous(),
+                                 v.contiguous(), valid.bool().contiguous())
 
 
 def ssd_scan(x, dt, A, bmat, cmat, *, chunk: int = 64):
@@ -67,8 +78,8 @@ def ensemble_accumulate_quant(partial, q, scales, weights, *,
 
 def kernel_launches() -> Dict[str, int]:
     """Launches of each Hopper kernel since the last :func:`reset_counts`."""
-    return {**_fa.launches.snapshot(), **_comb.launches.snapshot(),
-            **_ssd.launches.snapshot()}
+    return {**_fa.launches.snapshot(), **_dec.launches.snapshot(),
+            **_comb.launches.snapshot(), **_ssd.launches.snapshot()}
 
 
 def plain_calls() -> Dict[str, int]:
@@ -78,6 +89,7 @@ def plain_calls() -> Dict[str, int]:
 
 def reset_counts() -> None:
     _fa.launches.reset()
+    _dec.launches.reset()
     _comb.launches.reset()
     _ssd.launches.reset()
     ref.calls.reset()

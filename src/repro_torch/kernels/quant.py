@@ -91,6 +91,17 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor,
     return (q.float() * scale).to(dtype)
 
 
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """KV-cache quantization: symmetric int8 per (..., head) over the
+    trailing head dim; the scale keeps a size-1 trailing dim."""
+    return quantize_symmetric(x, axis=-1, dtype="int8")
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype=torch.float32) -> torch.Tensor:
+    return dequantize(q, scale, dtype)
+
+
 def _is_wrapped(node: Any) -> bool:
     if not isinstance(node, dict):
         return False

@@ -14,8 +14,8 @@ from repro_torch.kernels import Counter
 
 NEG_INF = -1e30
 
-calls = Counter("flash_attention", "ensemble_combine", "ensemble_accumulate",
-                "ensemble_accumulate_quant", "ssd_scan")
+calls = Counter("flash_attention", "decode_attention", "ensemble_combine",
+                "ensemble_accumulate", "ensemble_accumulate_quant", "ssd_scan")
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
@@ -41,6 +41,17 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                          torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqs,bshk->bqhk", probs, v.float()).to(q.dtype)
+
+
+def decode_attention_ref(q, k, v, valid, *,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B,1,H,hd), k/v: (B,L,KV,hd), valid: (L,) bool -> (B,1,H,hd),
+    computed in f32 and returned in q's dtype: the decode path's masked
+    softmax, ``models.attention.masked_decode``.  ``scale`` defaults to
+    hd^-0.5; ``ops`` passes q already scaled and ``scale=1``."""
+    calls.add("decode_attention")
+    from repro_torch.models.attention import masked_decode
+    return masked_decode(q, k, v, valid, scale=scale)
 
 
 def ssd_scan_ref(x, dt, A, bmat, cmat, *, chunk: int = 64) -> torch.Tensor:

@@ -1,16 +1,20 @@
-"""GQA self-attention (qk-norm, RoPE, sliding window).
+"""GQA self-attention (qk-norm, RoPE, sliding window) and cached decode
+attention.
 
-Three execution paths, as in the JAX package:
+Three execution paths for the full sequence, as in the JAX package:
   * ``use_kernel``: the flash-attention kernel through ``kernels.ops`` (the
     Hopper kernel for CUDA tensors, its plain version for CPU tensors);
   * sequences up to ``_DENSE_MAX``: the plain masked einsum;
   * longer sequences: an online-softmax loop over KV chunks, O(S·chunk)
     live memory.
-Cross-attention and cached decode attention are not ported yet (ROADMAP
-Queue 1 items 13 and 11).
+One token against a cache (:func:`decode_attention`) takes the
+decode-attention kernel through ``kernels.ops`` when ``use_kernel`` and the
+cache is not int8, else the plain masked softmax.  Cross-attention is not
+ported yet (ROADMAP Queue 1 item 13).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -114,4 +118,73 @@ def self_attention(cfg: ModelConfig, p, x, positions, *, window: int = 0,
     else:
         out = chunked_attention(q, k, v, positions, positions, causal=True,
                                 window=window)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def masked_decode(q, k, v, valid, *, scale: Optional[float] = None
+                  ) -> torch.Tensor:
+    """One query token against a cache, in f32: q (B,1,H,hd), k/v
+    (B,L,KV,hd), valid (L,) bool -> (B,1,H,hd) in q's dtype.  The logits
+    are scaled (default hd^-0.5) and invalid slots set to -1e30 before the
+    softmax.  The plain decode path and the kernel's plain version."""
+    h = q.shape[2]
+    k, v = _expand_kv(k, h), _expand_kv(v, h)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    logits = torch.einsum("bqhk,bshk->bhqs", q.float(), k.float()) * scale
+    logits = torch.where(valid[None, None, None, :], logits,
+                         torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqs,bshk->bqhk", probs, v.float()).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def slot_valid(L: int, pos: int, window: int, device) -> torch.Tensor:
+    """(L,) bool: which cache slots hold a key the token at ``pos`` sees.
+    For a ring (``window`` > 0) slot i holds the latest absolute position
+    p <= pos with p % L == i.  Cached, so the layers of one decode step
+    share one mask; callers only read it."""
+    idx = torch.arange(L, device=device)
+    k_pos = pos - ((pos - idx) % L) if window > 0 else idx
+    valid = (k_pos <= pos) & (k_pos >= 0)
+    if window > 0:
+        valid &= k_pos > pos - window
+    return valid
+
+
+def decode_attention(cfg: ModelConfig, p, x, k_cache, v_cache, pos: int, *,
+                     window: int = 0, use_kernel: bool = False,
+                     k_scale=None, v_scale=None) -> torch.Tensor:
+    """One-token attention against a cache; returns attn_out (B,1,D).
+
+    x: (B,1,D); k_cache/v_cache: (B,L,KV,hd), a ring for SWA layers
+    (``window`` > 0); pos: absolute position of the new token.  The new
+    key and value are written into slot ``pos`` (``pos % L`` for a ring)
+    of the caches **in place**.  With k_scale/v_scale ((B,L,KV,1) f32) the
+    cache is int8: the new slot is quantized, the cache is dequantized on
+    read, and the plain path runs whatever ``use_kernel`` says.  The caller
+    keeps ``pos`` inside an ATTN cache (``transformer.decode_step`` checks
+    it)."""
+    L = k_cache.shape[1]
+    q, k_new, v_new = project_qkv(cfg, p, x)
+    posv = torch.full((1,), pos, device=x.device)
+    q = apply_rope(q, posv, cfg.rope_theta)
+    k_new = apply_rope(k_new, posv, cfg.rope_theta)
+    slot = pos % L if window > 0 else pos
+    quantized = k_scale is not None
+    if quantized:
+        from repro_torch.kernels.quant import dequantize_kv, quantize_kv
+        k_cache[:, slot], k_scale[:, slot] = quantize_kv(k_new[:, 0])
+        v_cache[:, slot], v_scale[:, slot] = quantize_kv(v_new[:, 0])
+        k_read = dequantize_kv(k_cache, k_scale)
+        v_read = dequantize_kv(v_cache, v_scale)
+    else:
+        k_cache[:, slot] = k_new[:, 0]
+        v_cache[:, slot] = v_new[:, 0]
+        k_read, v_read = k_cache, v_cache
+    valid = slot_valid(L, pos, window, x.device)
+    if use_kernel and not quantized:
+        from repro_torch.kernels import ops as kops
+        out = kops.decode_attention(q, k_read, v_read, valid)
+    else:
+        out = masked_decode(q, k_read, v_read, valid)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])

@@ -1,4 +1,5 @@
-"""Mamba2 mixer, full-sequence forward (PyTorch port).
+"""Mamba2 mixer: full-sequence forward, prefill state handoff and the
+one-token decode step (PyTorch port).
 
 Single B/C group, as in the JAX package (arXiv:2405.21060): in_proj ->
 [z, x, B, C, dt], a short causal depthwise conv over [x, B, C], softplus dt,
@@ -7,9 +8,10 @@ attention-like term plus the inter-chunk state recurrence), gated RMSNorm,
 out_proj.
 
 ``ssd_chunked`` here is also the plain version of the ``ssd_scan`` kernel
-(``kernels.ref.ssd_scan_ref`` calls it).  The prefill state handoff
-(``ssd_final_state``) and the one-token decode step belong to the generation
-path and are not ported yet (ROADMAP Queue 1 item 11).
+(``kernels.ref.ssd_scan_ref`` calls it).  After a prefill,
+``ssd_final_state`` is a second plain pass over the prompt for the state
+handed to decode, even when the scan ran on the kernel, as in the JAX
+package; ``ssm_decode_step`` advances that state one token in place.
 """
 from __future__ import annotations
 
@@ -97,20 +99,49 @@ def ssd_chunked(x, dt, A, bmat, cmat, chunk: int) -> torch.Tensor:
     return y[:, :s]
 
 
+def ssd_final_state(x, dt, A, bmat, chunk: int) -> torch.Tensor:
+    """The SSM state after the whole sequence, (B,H,P,N): the per-chunk
+    states of :func:`ssd_chunked` carried through the chunk recurrence."""
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        bmat = F.pad(bmat, (0, 0, 0, pad))
+    nc = x.shape[1] // chunk
+    xc = x.reshape(b, nc, chunk, h, p)
+    dtc = dt.reshape(b, nc, chunk, h)
+    bc = bmat.reshape(b, nc, chunk, n)
+    cs = torch.cumsum(dtc * A, dim=2)
+    decay_to_end = torch.exp(cs[:, :, -1:, :] - cs)
+    states = torch.einsum("bcjn,bcjhp->bchpn", bc,
+                          xc * (dtc * decay_to_end)[..., None])
+    chunk_decay = torch.exp(cs[:, :, -1, :])
+    hstate = torch.zeros((b, h, p, n), dtype=x.dtype, device=x.device)
+    for c in range(nc):
+        hstate = hstate * chunk_decay[:, c, :, None, None] + states[:, c]
+    return hstate
+
+
 def _gated_norm(y, z, w, eps):
     """RMS norm over all of d_inner of ``y·silu(z)``, with a (1 + w) gain."""
     return rms_norm(y * F.silu(z), w, eps)
 
 
 def ssm_mixer(cfg: ModelConfig, p, xin: torch.Tensor, *,
-              use_kernel: bool = False) -> torch.Tensor:
-    """Full-sequence Mamba2 mixer.  xin: (B,S,D) -> (B,S,D).  ``use_kernel``
-    runs the scan through ``kernels.ops.ssd_scan`` (the Hopper kernel for
-    CUDA tensors, its plain version for CPU tensors)."""
+              use_kernel: bool = False, return_state: bool = False):
+    """Full-sequence Mamba2 mixer.  xin: (B,S,D) -> (B,S,D), and with
+    ``return_state`` also the final SSM state (B,H,P,N) f32 and the conv
+    state: the last d_conv-1 rows of the pre-conv [x, B, C], left-padded
+    with zeros when S is shorter.  ``use_kernel`` runs the scan through
+    ``kernels.ops.ssd_scan`` (the Hopper kernel for CUDA tensors, its plain
+    version for CPU tensors)."""
     s = cfg.ssm
     zxbcdt = torch.einsum("bsd,de->bse", xin, p["in_proj"])
     z, x, bmat, cmat, dt = _split_proj(cfg, zxbcdt)
-    xbc = _causal_conv(torch.cat([x, bmat, cmat], -1), p["conv_w"])
+    xbc_pre = torch.cat([x, bmat, cmat], -1)
+    xbc = _causal_conv(xbc_pre, p["conv_w"])
     di, n = cfg.d_inner, s.d_state
     x, bmat, cmat = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
     bsz, slen = xin.shape[0], xin.shape[1]
@@ -124,5 +155,40 @@ def ssm_mixer(cfg: ModelConfig, p, xin: torch.Tensor, *,
         y = ssd_chunked(x, dt, A, bmat.float(), cmat.float(), s.chunk)
     y = y + x * p["D"][None, None, :, None]
     y = y.reshape(bsz, slen, di).to(xin.dtype)
+    y = _gated_norm(y, z, p["norm"], cfg.norm_eps)
+    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    if not return_state:
+        return out
+    hfinal = ssd_final_state(x, dt, A, bmat.float(), s.chunk)
+    tail = xbc_pre[:, -(s.d_conv - 1):]
+    tail = F.pad(tail, (0, 0, s.d_conv - 1 - tail.shape[1], 0))
+    return out, hfinal, tail
+
+
+def ssm_decode_step(cfg: ModelConfig, p, xin: torch.Tensor,
+                    h_state: torch.Tensor, conv_state: torch.Tensor
+                    ) -> torch.Tensor:
+    """One-token SSM step: xin (B,1,D) -> out (B,1,D).  ``h_state``
+    (B,H,P,N) f32 and ``conv_state`` (B, d_conv-1, C) are advanced by one
+    token **in place**."""
+    s = cfg.ssm
+    zxbcdt = torch.einsum("bsd,de->bse", xin, p["in_proj"])
+    z, x, bmat, cmat, dt = _split_proj(cfg, zxbcdt)
+    xbc_new = torch.cat([x, bmat, cmat], -1)                   # (B,1,C)
+    window = torch.cat([conv_state, xbc_new], dim=1)           # (B,K,C)
+    conv_out = F.silu((window * p["conv_w"][None]).sum(dim=1))  # (B,C)
+    conv_state.copy_(window[:, 1:])
+    di, n = cfg.d_inner, s.d_state
+    xt = conv_out[:, :di].reshape(-1, cfg.ssm_heads, s.head_dim).float()
+    bt = conv_out[:, di:di + n].float()                         # (B,N)
+    ct = conv_out[:, di + n:].float()
+    dtt = softplus(dt[:, 0].float() + p["dt_bias"])             # (B,H)
+    A = -torch.exp(p["A_log"].float())
+    decay = torch.exp(dtt * A)                                  # (B,H)
+    h_state.mul_(decay[..., None, None]).add_(
+        torch.einsum("bh,bn,bhp->bhpn", dtt, bt, xt))
+    y = torch.einsum("bn,bhpn->bhp", ct, h_state)
+    y = y + xt * p["D"][None, :, None]
+    y = y.reshape(xin.shape[0], 1, di).to(xin.dtype)
     y = _gated_norm(y, z, p["norm"], cfg.norm_eps)
     return torch.einsum("bse,ed->bsd", y, p["out_proj"])

@@ -8,10 +8,12 @@ Python loop over repeats.  A parameter leaf may be wrapped by
 dequantizes one layer's matrices just before that layer runs, so a quantized
 member keeps only its narrow tree on the device.
 
-This slice serves ``ATTN``, ``SWA``, ``SSM`` (Mamba2 mixer, no MLP when
+The port serves ``ATTN``, ``SWA``, ``SSM`` (Mamba2 mixer, no MLP when
 ``d_ff == 0``) and ``HYBRID`` (attention and the SSM mixer in parallel,
-averaged) layers with a dense SwiGLU MLP.  Cross-attention and MoE layers
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+averaged) layers with a dense SwiGLU MLP, for the full-sequence forward and
+for generation (``prefill`` then ``decode_step``).  Cross-attention and MoE
+layers raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.
 
 Public API:
     param_shapes(cfg)                              -> tree of shapes
@@ -19,6 +21,8 @@ Public API:
     forward(params, cfg, tokens, use_kernel=...)   -> (logits, aux_loss)
     hidden(params, cfg, tokens, use_kernel=...)    -> last hidden states
     logits_from_hidden(params, cfg, x)             -> logits
+    prefill(params, cfg, tokens, max_len, ...)     -> (logits, cache)
+    decode_step(params, cfg, cache, token, pos)    -> (logits, cache)
 """
 from __future__ import annotations
 
@@ -28,10 +32,11 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ATTN, CROSS, HYBRID, SSM, SWA, ModelConfig
-from repro_torch.kernels.quant import dequantize, leaf
+from repro_torch.kernels.quant import dequantize, leaf, quantize_kv
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import embed, rms_norm, swiglu, unembed
+from repro_torch.models.cache import init_cache
+from repro_torch.models.layers import apply_rope, embed, rms_norm, swiglu, unembed
 
 _NOT_PORTED = {
     CROSS: "cross-attention (ROADMAP Queue 1 item 13)",
@@ -176,10 +181,20 @@ def _apply_layer(cfg: ModelConfig, kind: str, lp, x, positions,
         x = x + 0.5 * (a + m)
     else:
         raise ValueError(kind)
+    return _apply_mlp(cfg, lp, x)
+
+
+def _apply_mlp(cfg: ModelConfig, lp, x):
     if cfg.d_ff > 0:
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
         x = x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
     return x
+
+
+def _layer_params(params, i: int, r: int):
+    """Layer ``i`` of the pattern unit, repeat ``r``, as f32-compute tensors
+    (a wrapped leaf is dequantized here)."""
+    return {name: leaf(node, r) for name, node in params["layers"][i].items()}
 
 
 def hidden(params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -191,9 +206,8 @@ def hidden(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     for r in range(cfg.repeats):
         for i, kind in enumerate(cfg.pattern):
-            lp = {name: leaf(node, r)
-                  for name, node in params["layers"][i].items()}
-            x = _apply_layer(cfg, kind, lp, x, positions, use_kernel)
+            x = _apply_layer(cfg, kind, _layer_params(params, i, r), x,
+                             positions, use_kernel)
     return x
 
 
@@ -210,3 +224,131 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     only MoE layers produce one, and they are not ported yet."""
     x = hidden(params, cfg, tokens, use_kernel=use_kernel)
     return logits_from_hidden(params, cfg, x), 0.0
+
+
+# --------------------------------------------------------------------------
+# Generation: prefill, then one token at a time against the cache
+# --------------------------------------------------------------------------
+def _ring_fill(dst: torch.Tensor, k: torch.Tensor) -> None:
+    """Write the last min(S, L) timesteps of k (B,S,...) into their slots
+    ``p % L`` of the L-slot ring ``dst`` (B,L,...)."""
+    s, L = k.shape[1], dst.shape[1]
+    take = min(s, L)
+    slots = (torch.arange(take, device=k.device) + (s - take)) % L
+    dst[:, slots] = k[:, s - take:]
+
+
+def _add_mixers(kind: str, x, a_out, m_out):
+    """The residual plus the layer's mixer: attention, the SSM, or for a
+    hybrid layer the mean of both."""
+    if kind == HYBRID:
+        return x + 0.5 * (a_out + m_out)
+    return x + (m_out if kind == SSM else a_out)
+
+
+def _prefill_layer(cfg: ModelConfig, kind: str, lp, x, positions, entry,
+                   use_kernel: bool):
+    """Run one layer over the prompt and fill its cache ``entry`` (views
+    of the cache tensors at this repeat) in place.  Attention always takes
+    the plain dense or chunked path here, as in the JAX package."""
+    h = rms_norm(x, lp["pre_norm"], cfg.norm_eps)
+    a_out = m_out = None
+    if kind in (ATTN, SWA, HYBRID):
+        window = 0 if kind == ATTN else cfg.sliding_window
+        q, k, v = attn_mod.project_qkv(cfg, lp, h)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        if x.shape[1] <= attn_mod._DENSE_MAX:
+            out = attn_mod.dense_attention(q, k, v, positions, positions,
+                                           causal=True, window=window)
+        else:
+            out = attn_mod.chunked_attention(q, k, v, positions, positions,
+                                             causal=True, window=window)
+        a_out = torch.einsum("bshk,hkd->bsd", out, lp["wo"])
+        for name, t in (("k", k), ("v", v)):
+            if "k_scale" in entry:
+                # the JAX package quantizes the whole zero-filled buffer,
+                # so an empty slot's scale is the 1e-8 floor
+                buf = torch.zeros(entry[name].shape, dtype=t.dtype,
+                                  device=t.device)
+            else:
+                buf = entry[name]
+            if kind == ATTN:
+                buf[:, :t.shape[1]] = t
+            else:
+                _ring_fill(buf, t)
+            if "k_scale" in entry:
+                entry[name][...], entry[name + "_scale"][...] = quantize_kv(buf)
+    if kind in (SSM, HYBRID):
+        m_out, h_state, conv_tail = ssm_mod.ssm_mixer(
+            cfg, lp, h, use_kernel=use_kernel, return_state=True)
+        entry["h"].copy_(h_state)
+        entry["conv"].copy_(conv_tail)
+    return _apply_mlp(cfg, lp, _add_mixers(kind, x, a_out, m_out))
+
+
+def _at(cache, i: int, r: int):
+    """Views of layer ``i``'s cache tensors at repeat ``r``."""
+    return {name: t[r] for name, t in cache["layers"][i].items()}
+
+
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int, *,
+            use_kernel: bool = False, quantize_cache: bool = False
+            ) -> Tuple[torch.Tensor, Any]:
+    """Run the prompt tokens (B,S) and return (last-token logits (B,Vpad),
+    cache) with room for ``max_len`` positions.  ``quantize_cache`` stores
+    K/V as int8 with per-slot, per-head scales; decode then dequantizes on
+    read.  ``use_kernel`` runs the SSM scans on the ``ssd_scan`` kernel."""
+    check_supported(cfg)
+    b, s = tokens.shape
+    if s > max_len and ATTN in cfg.pattern:
+        raise ValueError(f"prefill: a prompt of {s} tokens does not fit a "
+                         f"{max_len}-slot cache")
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(s, device=tokens.device)
+    cache = init_cache(cfg, b, max_len, x.dtype, quantized=quantize_cache,
+                       device=tokens.device)
+    for r in range(cfg.repeats):
+        for i, kind in enumerate(cfg.pattern):
+            x = _prefill_layer(cfg, kind, _layer_params(params, i, r), x,
+                               positions, _at(cache, i, r), use_kernel)
+    return logits_from_hidden(params, cfg, x[:, -1]), cache
+
+
+def _decode_layer(cfg: ModelConfig, kind: str, lp, entry, x, pos: int,
+                  use_kernel: bool):
+    h = rms_norm(x, lp["pre_norm"], cfg.norm_eps)
+    a_out = m_out = None
+    if kind in (ATTN, SWA, HYBRID):
+        a_out = attn_mod.decode_attention(
+            cfg, lp, h, entry["k"], entry["v"], pos,
+            window=0 if kind == ATTN else cfg.sliding_window,
+            use_kernel=use_kernel, k_scale=entry.get("k_scale"),
+            v_scale=entry.get("v_scale"))
+    if kind in (SSM, HYBRID):
+        m_out = ssm_mod.ssm_decode_step(cfg, lp, h, entry["h"], entry["conv"])
+    return _apply_mlp(cfg, lp, _add_mixers(kind, x, a_out, m_out))
+
+
+def decode_step(params, cfg: ModelConfig, cache, token: torch.Tensor, pos,
+                *, use_kernel: bool = False) -> Tuple[torch.Tensor, Any]:
+    """token: (B,1) int at absolute position ``pos`` -> (logits (B,Vpad),
+    cache).  Unlike the JAX package, which returns a new cache, the port
+    writes the new K/V slot and SSM states into ``cache`` **in place** and
+    returns the same tree: a copy per step would cost more than the step.
+    ``use_kernel`` runs attention on the decode-attention kernel (not for
+    an int8 cache).  An ATTN layer has no slot past its end: ``pos >=
+    max_len`` raises ``ValueError`` before any state changes."""
+    check_supported(cfg)
+    pos = int(pos)
+    for i, kind in enumerate(cfg.pattern):
+        L = cache["layers"][i]["k"].shape[2] if kind == ATTN else None
+        if pos < 0 or (L is not None and pos >= L):
+            raise ValueError(f"decode_step: position {pos} is outside the "
+                             f"{L}-slot cache")
+    x = _embed(params, cfg, token)
+    for r in range(cfg.repeats):
+        for i, kind in enumerate(cfg.pattern):
+            x = _decode_layer(cfg, kind, _layer_params(params, i, r),
+                              _at(cache, i, r), x, pos, use_kernel)
+    return logits_from_hidden(params, cfg, x[:, 0]), cache

@@ -1,7 +1,8 @@
 """The port's Hopper kernels and its served path on a CUDA card.
 
-Each kernel is held against its plain PyTorch version on the card, and a
-small ensemble is served through the kernels.  Without a card every test
+Each kernel is held against its plain PyTorch version on the card, a
+small ensemble is served through the kernels, and reduced models generate
+through them.  Without a card every test
 skips.  This file imports no JAX, so it also runs on a machine without it:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -11,6 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import decode_attention as dec  # noqa: E402
 from repro_torch.kernels import ensemble_combine as ec  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -139,6 +141,50 @@ def test_ssd_kernel_takes_unaligned_inputs(dev):
     torch.testing.assert_close(got, want, atol=tol, rtol=1e-4)
 
 
+DECODE_CASES = [               # (b, L, h, kv, hd, dtype, first valid, last)
+    (2, 64, 4, 2, 32, torch.float32, 0, 57),
+    (1, 300, 8, 2, 80, torch.float32, 0, 293),      # danube's hd 80
+    (3, 1024, 4, 1, 128, torch.float32, 0, 1017),
+    (2, 128, 4, 4, 64, torch.bfloat16, 0, 121),
+    (2, 1024, 4, 1, 256, torch.float32, 600, 1024),  # gemma3's hd 256,
+    (2, 1024, 4, 1, 256, torch.bfloat16, 600, 1024),  # leading tiles invalid
+    (4, 2048, 16, 8, 128, torch.float32, 0, 1088),   # trailing splits invalid
+    (2, 1024, 25, 5, 64, torch.float32, 0, 1024),    # hymba's group of 5
+    (1, 77, 64, 1, 128, torch.float32, 0, 77),       # a group over 2048 / hd
+    (2, 100, 4, 2, 50, torch.float32, 0, 100),       # hd % 4 != 0
+]
+
+
+@pytest.mark.parametrize("b,L,h,kv,hd,dtype,lo,hi", DECODE_CASES)
+def test_decode_kernel_matches_plain(dev, b, L, h, kv, hd, dtype, lo, hi):
+    q = (_randn(dev, 1, b, 1, h, hd) * hd ** -0.5).to(dtype)
+    k = _randn(dev, 2, b, L, kv, hd).to(dtype)
+    v = _randn(dev, 3, b, L, kv, hd).to(dtype)
+    pos = torch.arange(L, device=dev)
+    valid = (pos >= lo) & (pos < hi)
+    before = dec.launches.snapshot()["decode_attention"]
+    got = dec.decode_attention(q, k, v, valid)
+    want = ref.decode_attention_ref(q, k, v, valid, scale=1.0)
+    torch.cuda.synchronize()
+    assert dec.launches.snapshot()["decode_attention"] == before + 1
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("mask", ["random", "none"])
+def test_decode_kernel_takes_any_mask(dev, mask):
+    """A random mask, and none valid (the plain version's softmax over equal
+    -1e30 logits: the mean of V)."""
+    b, L, h, kv, hd = 2, 700, 8, 2, 64
+    q = _randn(dev, 4, b, 1, h, hd) * hd ** -0.5
+    k, v = _randn(dev, 5, b, L, kv, hd), _randn(dev, 6, b, L, kv, hd)
+    valid = (torch.rand(L, device=dev) < 0.3 if mask == "random" else
+             torch.zeros(L, dtype=torch.bool, device=dev))
+    got = dec.decode_attention(q, k, v, valid)
+    want = ref.decode_attention_ref(q, k, v, valid, scale=1.0)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     q = torch.zeros((1, 8, 4, 32), device=dev)
     with pytest.raises(ValueError):
@@ -156,6 +202,21 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         ssd.ssd_scan(x, dt, A, bm, cm, chunk=16)
     with pytest.raises(TypeError):
         ssd.ssd_scan(x.double(), dt, A, bm, cm, chunk=16)
+    q1 = torch.zeros((1, 1, 4, 32), device=dev)
+    kc = torch.zeros((1, 16, 2, 32), device=dev)
+    ok = torch.ones(16, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):                      # not contiguous
+        dec.decode_attention(q1, kc.transpose(1, 2).contiguous().transpose(
+            1, 2), kc, ok)
+    with pytest.raises(TypeError):
+        dec.decode_attention(q1.half(), kc.half(), kc.half(), ok)
+    with pytest.raises(ValueError):                      # hd > 256
+        big = torch.zeros((1, 16, 2, 320), device=dev)
+        dec.decode_attention(torch.zeros((1, 1, 4, 320), device=dev), big,
+                             big, ok)
+    with pytest.raises(ValueError):                      # H % KV != 0
+        dec.decode_attention(torch.zeros((1, 1, 3, 32), device=dev), kc, kc,
+                             ok)
 
 
 def _serve(dev, cfgs, X, alloc_row):
@@ -198,6 +259,7 @@ def test_served_ensemble_goes_through_the_kernels(dev):
     X = np.random.default_rng(0).integers(0, 512, (40, 16)).astype(np.int32)
     launches = _serve(dev, ensemble("ENS4")[:2], X, [8, 16])
     assert launches.pop("ssd_scan") == 0          # attention members only
+    assert launches.pop("decode_attention") == 0  # no generation here
     assert all(launches.values()), launches
 
 
@@ -208,8 +270,44 @@ def test_served_ssm_and_hybrid_ensemble_goes_through_the_kernels(dev):
     cfgs = ensemble("ENS12")[5:7]
     X = np.random.default_rng(1).integers(0, 512, (40, 72)).astype(np.int32)
     launches = _serve(dev, cfgs, X, [16, 8])
+    assert launches.pop("decode_attention") == 0  # no generation here
     assert all(launches.values()), launches
     chunks = [-(-40 // 16), -(-40 // 8)]
     assert launches["ssd_scan"] >= sum(
         c.num_layers * k for c, k in zip(cfgs, chunks))
     assert launches["flash_attention"] >= cfgs[0].num_layers * chunks[0]
+
+
+@pytest.mark.parametrize("name", ["qwen3-1.7b-reduced", "hymba-1.5b-reduced"])
+def test_generation_goes_through_the_kernels(dev, name):
+    """prefill + decode on the card: every attention layer of every step
+    launches the decode kernel, every SSM layer of the prefill the scan,
+    no plain version runs, and the logits follow the plain decode path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+    cfg = get_config(name)
+    p = init_params(cfg, seed=0, device=dev)
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 90)).astype(np.int32)).to(dev)
+    s0, steps = 80, 10          # hymba's 64-slot ring wraps
+    runs = {}
+    for use_kernel in (True, False):
+        ops.reset_counts()
+        lg, cache = prefill(p, cfg, tok[:, :s0], 96, use_kernel=use_kernel)
+        out = [lg]
+        for t in range(steps):
+            lg, cache = decode_step(p, cfg, cache, tok[:, s0 + t:s0 + t + 1],
+                                    s0 + t, use_kernel=use_kernel)
+            out.append(lg)
+        runs[use_kernel] = (torch.stack(out), ops.kernel_launches(),
+                            ops.plain_calls())
+    got, launches, plain = runs[True]
+    want = runs[False][0]
+    assert not any(plain.values()), plain
+    attn = sum(k in ("attn", "swa", "hybrid") for k in cfg.pattern)
+    ssm = sum(k in ("ssm", "hybrid") for k in cfg.pattern)
+    assert launches["decode_attention"] == attn * cfg.repeats * steps
+    assert launches["ssd_scan"] == ssm * cfg.repeats
+    assert launches["flash_attention"] == 0
+    tol = 1e-4 * max(1.0, want.abs().max().item())
+    torch.testing.assert_close(got, want, atol=tol, rtol=0)

@@ -25,7 +25,8 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     for m in ("repro_torch.serving.system", "repro_torch.models.ssm",
-              "repro_torch.kernels.ssd_scan"):
+              "repro_torch.kernels.ssd_scan", "repro_torch.models.cache",
+              "repro_torch.kernels.decode_attention"):
         assert m in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
