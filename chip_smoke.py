@@ -11,7 +11,17 @@ Phases, one JSON line each; any failed phase exits non-zero:
 3. one phase per kernel: the kernel against its plain PyTorch version on the
    card over the JAX test suite's cases and the main path's shapes, with
    the stated tolerance, and its time beside the plain version's, the
-   library call's (a yardstick only, the port never calls it) and its bound;
+   library call's (a yardstick only, the port never calls it) and its bound.
+   ``ms`` and ``library_ms`` are device times: 20 calls captured in a CUDA
+   graph and replayed between two events, kernel and library call in turns
+   (kernel, library, library, kernel), so the host's speed does not enter.
+   ``enqueued_ms`` is the older reading, 20 calls launched from Python
+   between two events: what a host-driven caller sees, and no lower than
+   the wrapper's own cost, ``host_us`` (a host clock around 1,000 calls
+   with no synchronise inside, over 1,000).  ``plain_ms`` is enqueued.
+   ``ensemble_combine`` is timed in the form the combiner calls, a fold in
+   place into the partial, against ``torch.add`` in place, each call on the
+   next of four sets of operands so that none is read from L2;
 4. end to end at full width, one phase per member pair: ``InferenceSystem``
    on one card, ``combine="pallas"``, ``use_kernel=True``, an fp32 member
    and the same widths at half the layers as an int8 member, with random
@@ -45,6 +55,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import subprocess
@@ -57,8 +68,9 @@ SRC = ROOT / "src"
 
 # published H100 SXM peaks (NVIDIA data sheet), at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12              # f32 on the CUDA cores (every kernel's
-                               # arithmetic is f32)
+F32_FLOPS = 67e12              # f32 on the CUDA cores
+TF32_FLOPS = 495e12            # TF32 on the tensor cores, dense; flash runs
+                               # every product three times (3xTF32)
 
 FLASH_CASES = [                # (b, s, h, kv, hd, window, dtype) — JAX suite
     (2, 64, 4, 2, 32, 0, "float32"),
@@ -71,6 +83,11 @@ FLASH_CASES = [                # (b, s, h, kv, hd, window, dtype) — JAX suite
     (8, 256, 16, 8, 128, 0, "float32"),
     (16, 256, 25, 5, 64, 1024, "float32"),  # serving path, hymba chunks
     (8, 256, 25, 5, 64, 1024, "float32"),
+    (2, 65, 4, 2, 128, 0, "float32"),       # S past whole q and kv tiles
+    (1, 200, 25, 5, 64, 16, "float32"),     # window inside one kv tile
+    (1, 70, 4, 1, 256, 16, "float32"),
+    (2, 33, 2, 1, 50, 0, "float32"),        # hd 50: padded to 64, element loads
+    (2, 130, 16, 8, 128, 0, "bfloat16"),
 ]
 # served class counts: qwen3 151936, mamba2 50280, hymba 32001 (rows not
 # 16-byte aligned)
@@ -104,7 +121,11 @@ DECODE_CASES = [              # (b, L, h, kv, hd, dtype, valid slots)
 MAIN_DECODE = (16, 2048, 16, 8, 128)
 MAIN_DECODE_VALID = 1088
 MAIN_FLASH = (16, 256, 16, 8, 128)
+HYMBA_FLASH = (16, 256, 25, 5, 64)
 MAIN_SEG, MAIN_C = 32, 151936
+COMBINE_SETS = 4               # (preds, partial) sets that the timed folds
+                               # rotate over: 4 x 39 MB, so that no fold
+                               # finds its operands in the 50 MB L2
 MAIN_SSD = (16, 256, 64, 64, 128, 64)
 MAX_FLIP_SHARE = 0.01          # int8 code flips allowed in the served Y
 
@@ -127,7 +148,9 @@ def smi_line() -> str:
 
 
 def time_ms(torch, fn, iters: int = 20) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls after a warm-up."""
+    """Mean enqueued time of ``fn``: ``iters`` calls launched from Python
+    between two events after a warm-up.  For a kernel of some microseconds
+    this reads the host's launch rate, not the device."""
     for _ in range(3):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -139,6 +162,65 @@ def time_ms(torch, fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int = 20, reps: int = 3) -> float:
+    """Mean device time of one call of ``fn``: ``iters`` calls captured in a
+    CUDA graph, the graph replayed ``reps`` times between two events.  The
+    warm-up runs first on a side stream, so that builds, allocations and
+    once-per-kernel attribute calls stay out of the capture."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * iters)
+
+
+def host_us(torch, fn, calls: int = 1000) -> float:
+    """The host's time per call of ``fn`` in µs: a host clock around
+    ``calls`` calls with no synchronise inside."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def timings(torch, kernel, plain, library=None,
+            plain_iters: int = 20) -> dict:
+    """The kernel's and the library call's device ms, in turns (kernel,
+    library, library, kernel), the kernel's enqueued ms, the kernel
+    wrapper's host µs per call and the plain version's enqueued ms (its
+    calls are many kernels each, and device-bound at the timed shapes)."""
+    turns = [device_ms(torch, kernel)]
+    lib_turns = []
+    if library is not None:
+        lib_turns = [device_ms(torch, library), device_ms(torch, library)]
+    turns.append(device_ms(torch, kernel))
+    return {"ms": sum(turns) / len(turns),
+            "library_ms": sum(lib_turns) / 2 if lib_turns else None,
+            "enqueued_ms": time_ms(torch, kernel),
+            "host_us": host_us(torch, kernel),
+            "plain_ms": time_ms(torch, plain, iters=plain_iters)}
 
 
 def bound(nbytes: float, ops: float, peak_ops: float):
@@ -161,60 +243,176 @@ def close(torch, got, want, tol: float, rtol=None) -> float:
 
 
 # ---------------------------------------------------------------------------
+def attn_pairs(s: int, window: int) -> int:
+    """(query, key) pairs that the causal mask, and the window if any,
+    keep in a sequence of ``s``."""
+    return sum(min(i + 1, window) if window > 0 else i + 1 for i in range(s))
+
+
+def attention_f64(q, k, v, window: int):
+    """Causal attention in float64 (q pre-scaled): the yardstick of the
+    f32 kernel's and of one TF32 pass's error."""
+    import torch
+    b, s, h, hd = q.shape
+    g = h // k.shape[2]
+    kk, vv = (t.double().repeat_interleave(g, dim=2) for t in (k, v))
+    logits = torch.einsum("bqhd,bshd->bhqs", q.double(), kk)
+    pos = torch.arange(s, device=q.device)
+    ok = pos[None, :] <= pos[:, None]
+    if window > 0:
+        ok &= pos[None, :] > pos[:, None] - window
+    logits = logits.masked_fill(~ok, float("-inf"))
+    return torch.einsum("bhqs,bshd->bqhd", torch.softmax(logits, -1), vv)
+
+
+def flash_inputs(torch, gen, dev, b, s, h, kv, hd, dtype):
+    """Random q, k and v of one flash case, q pre-scaled by hd^-0.5 in its
+    own dtype as the model does."""
+    q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dtype)
+    scale = float(torch.tensor(hd ** -0.5, dtype=dtype))
+    return (q * scale).contiguous(), k, v
+
+
+def time_flash(torch, fa, ref, qs, k, v, window: int) -> dict:
+    """Times, bounds and errors against float64 of the flash kernel at one
+    serving shape, beside SDPA's and the plain version's."""
+    import torch.nn.functional as F
+    b, s, h, hd = qs.shape
+    kv = k.shape[2]
+    # library yardstick: one SDPA call on the same inputs (never used by the
+    # port); it wants (B, H, S, hd) with the kv heads expanded, and the
+    # window as a mask (none at S <= window)
+    qt = qs.transpose(1, 2)
+    kt, vt = (t.repeat_interleave(h // kv, dim=2).transpose(1, 2)
+              for t in (k, v))
+    if 0 < window < s:
+        pos = torch.arange(s, device=qs.device)
+        mask = (pos[None, :] <= pos[:, None]) & \
+            (pos[None, :] > pos[:, None] - window)
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  scale=1.0)
+    else:
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  scale=1.0)
+    out = timings(
+        torch, lambda: fa.flash_attention(qs, k, v, causal=True,
+                                          window=window),
+        lambda: ref.flash_attention_ref(qs, k, v, causal=True, window=window,
+                                        scale=1.0), library)
+    ops = 4.0 * b * h * attn_pairs(s, window) * hd
+    nbytes = 4 * (2 * b * s * h * hd + 2 * b * s * kv * hd)
+    out["bound_ms"], out["bound_by"] = bound(nbytes, 3 * ops, TF32_FLOPS)
+    out["bound_rate"] = "3 x operations / 495 TFLOP/s (3xTF32, tensor cores)"
+    out["cuda_core_bound_ms"] = bound(nbytes, ops, F32_FLOPS)[0]
+    out["flops"] = ops
+    # errors against float64: the kernel (3xTF32), the plain version in f32
+    # and the plain version with TF32 matmuls (one TF32 pass)
+    want = attention_f64(qs, k, v, window)
+    got = fa.flash_attention(qs, k, v, causal=True, window=window)
+    plain = ref.flash_attention_ref(qs, k, v, causal=True, window=window,
+                                    scale=1.0)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        one_pass = ref.flash_attention_ref(qs, k, v, causal=True,
+                                           window=window, scale=1.0)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    errs = {}
+    for name, x in (("kernel", got), ("plain_f32", plain),
+                    ("plain_tf32_one_pass", one_pass)):
+        e = (x.double() - want).abs()
+        errs[name] = {"max_abs_err": e.max().item(),
+                      "over_2e-5": int((e > 2e-5 + 2e-5 * want.abs()).sum())}
+    out["err_vs_f64"] = errs
+    return out
+
+
 def phase_flash(torch, gen, dev):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     cases = []
-    main = None
+    served = {}
     for b, s, h, kv, hd, window, dt in FLASH_CASES:
         dtype = getattr(torch, dt)
-        q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dtype)
-        k = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dtype)
-        v = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dtype)
-        scale = float(torch.tensor(hd ** -0.5, dtype=dtype))
-        qs = (q * scale).contiguous()
+        qs, k, v = flash_inputs(torch, gen, dev, b, s, h, kv, hd, dtype)
         out = fa.flash_attention(qs, k, v, causal=True, window=window)
         want = ref.flash_attention_ref(qs, k, v, causal=True, window=window,
                                        scale=1.0)
         torch.cuda.synchronize()
         tol = 2e-5 if dtype == torch.float32 else 2e-2
         err = close(torch, out, want, tol)
-        case = {"shape": [b, s, h, kv, hd], "window": window, "dtype": dt,
-                "max_abs_err": err, "tol": tol}
-        if (b, s, h, kv, hd) == MAIN_FLASH:
-            main = (qs, k, v, err)
-        cases.append(case)
-    qs, k, v, err = main
-    b, s, h, kv, hd = MAIN_FLASH
-    ms = time_ms(torch, lambda: fa.flash_attention(qs, k, v, causal=True))
-    plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(
-        qs, k, v, causal=True, scale=1.0))
-    # library yardstick: one SDPA call on the same inputs (never used by the
-    # port); it wants (B, H, S, hd) with the kv heads expanded
-    import torch.nn.functional as F
-    qt = qs.transpose(1, 2)
-    kt, vt = (t.repeat_interleave(h // kv, dim=2).transpose(1, 2)
-              for t in (k, v))
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, scale=1.0))
-    pairs = b * h * s * (s + 1) // 2              # causal (q, k) pairs
-    nbytes = 4 * (2 * b * s * h * hd + 2 * b * s * kv * hd)
-    bound_ms, bound_by = bound(nbytes, 4.0 * pairs * hd, F32_FLOPS)
+        cases.append({"shape": [b, s, h, kv, hd], "window": window,
+                      "dtype": dt, "max_abs_err": err, "tol": tol})
+        if (b, s, h, kv, hd) in (MAIN_FLASH, HYMBA_FLASH):
+            served[(b, s, h, kv, hd)] = (qs, k, v, window, err)
+    timed = []
+    for shape in (MAIN_FLASH, HYMBA_FLASH):
+        qs, k, v, window, err = served[shape]
+        timed.append({"shape": list(shape), "window": window,
+                      "max_abs_err": err,
+                      **time_flash(torch, fa, ref, qs, k, v, window)})
+    main = timed[0]
     emit({"phase": "kernel:flash_attention", "cases": cases, "ok": True,
-          "main_shape": list(MAIN_FLASH), "ms": ms, "plain_ms": plain_ms,
-          "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+          "main_shape": list(MAIN_FLASH), "timed": timed,
+          **{key: main[key] for key in SUMMARY_TIMES}})
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:95",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+            "max_abs_err": main["max_abs_err"],
+            **{key: main[key] for key in SUMMARY_TIMES},
+            "bound_rate": main["bound_rate"],
+            "cuda_core_bound_ms": main["cuda_core_bound_ms"]}
+
+
+# the timing keys of each kernel's phase and of the summary line
+SUMMARY_TIMES = ("ms", "enqueued_ms", "host_us", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms")
+
+
+def combine_sets(torch, gen, dev, n: int = COMBINE_SETS) -> list:
+    """``n`` random (preds, weights, partial) sets at qwen3's segment (one
+    member, M 1), one weight vector shared."""
+    w = torch.softmax(torch.randn((1,), generator=gen, device=dev), 0)
+    return [(torch.randn((1, MAIN_SEG, MAIN_C), generator=gen, device=dev), w,
+             torch.randn((MAIN_SEG, MAIN_C), generator=gen, device=dev))
+            for _ in range(n)]
+
+
+def rotating(fn, sets):
+    """A call that runs ``fn(*set)`` on the next of ``sets`` each time."""
+    turn = itertools.count()
+    return lambda: fn(*sets[next(turn) % len(sets)])
+
+
+def time_combine(torch, ec, ref, sets) -> dict:
+    """Times of the combiner's own call, a fold of one member into the
+    partial in place, beside ``torch.add`` in place.  Consecutive calls
+    take consecutive ``sets``, so each reads its operands from HBM."""
+    w0 = sets[0][1][0].item()
+    t = timings(
+        torch,
+        rotating(lambda p, w, part: ec.ensemble_combine(p, w, part, out=part),
+                 sets),
+        rotating(lambda p, w, part: ref.ensemble_accumulate_ref(part, p, w),
+                 sets),
+        rotating(lambda p, w, part: torch.add(part, p[0], alpha=w0,
+                                              out=part), sets))
+    n = MAIN_SEG * MAIN_C
+    t["bound_ms"], t["bound_by"] = bound(4 * (3 * n + 1), 2.0 * n, F32_FLOPS)
+    return t
 
 
 def phase_combine(torch, gen, dev):
     from repro_torch.kernels import ensemble_combine as ec
     from repro_torch.kernels import ref
     cases = []
-    main = None
+    err = None
     for m, seg, c in COMBINE_CASES:
         p = torch.randn((m, seg, c), generator=gen, device=dev)
         w = torch.softmax(torch.randn((m,), generator=gen, device=dev), 0)
@@ -239,23 +437,14 @@ def phase_combine(torch, gen, dev):
                       "accumulate_err": err_a, "in_place_err": err_i,
                       "row_offset_err": err_v, "tol": 1e-5})
         if (m, seg, c) == (1, MAIN_SEG, MAIN_C):
-            main = (p, w, part, max(err_a, err_i))
-    p, w, part, err = main
-    out = torch.empty_like(part)
-    ms = time_ms(torch, lambda: ec.ensemble_combine(p, w, part, out=out))
-    plain_ms = time_ms(torch, lambda: ref.ensemble_accumulate_ref(part, p, w))
-    w0 = w[0].item()
-    lib_ms = time_ms(torch, lambda: torch.add(part, p[0], alpha=w0, out=out))
-    n = MAIN_SEG * MAIN_C
-    bound_ms, bound_by = bound(4 * (3 * n + 1), 2.0 * n, F32_FLOPS)
+            err = max(err_a, err_i)
+    t = time_combine(torch, ec, ref, combine_sets(torch, gen, dev))
     emit({"phase": "kernel:ensemble_combine", "cases": cases, "ok": True,
-          "main_shape": [1, MAIN_SEG, MAIN_C], "ms": ms, "plain_ms": plain_ms,
-          "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+          "main_shape": [1, MAIN_SEG, MAIN_C], **t})
     return {"name": "ensemble_combine", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ensemble_combine.cu",
             "replaces": "src/repro/kernels/ensemble_combine.py:143",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+            "max_abs_err": err, **{key: t[key] for key in SUMMARY_TIMES}}
 
 
 def phase_quant(torch, gen, dev):
@@ -291,22 +480,18 @@ def phase_quant(torch, gen, dev):
                 main = (part, q, s, w, max(err, err_i))
     part, q, s, w, err = main
     out = torch.empty_like(part)
-    ms = time_ms(torch, lambda: ec.ensemble_combine_quant(part, q, s, w,
-                                                          out=out))
-    plain_ms = time_ms(torch, lambda: ref.ensemble_accumulate_quant_ref(
-        part, q, s, w))
+    t = timings(torch, lambda: ec.ensemble_combine_quant(part, q, s, w,
+                                                         out=out),
+                lambda: ref.ensemble_accumulate_quant_ref(part, q, s, w))
     n = MAIN_SEG * MAIN_C
     nbytes = n * 1 + 4 * MAIN_SEG + 4 * 2 * n + 4
-    bound_ms, bound_by = bound(nbytes, 3.0 * n, F32_FLOPS)
+    t["bound_ms"], t["bound_by"] = bound(nbytes, 3.0 * n, F32_FLOPS)
     emit({"phase": "kernel:ensemble_combine_quant", "cases": cases,
-          "ok": True, "main_shape": [1, MAIN_SEG, MAIN_C], "ms": ms,
-          "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
-          "bound_by": bound_by})
+          "ok": True, "main_shape": [1, MAIN_SEG, MAIN_C], **t})
     return {"name": "ensemble_combine_quant", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ensemble_combine.cu",
             "replaces": "src/repro/kernels/ensemble_combine.py:108",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "max_abs_err": err, **{key: t[key] for key in SUMMARY_TIMES}}
 
 
 def decode_valid(torch, kind: str, L: int, gen, dev):
@@ -347,29 +532,28 @@ def phase_decode(torch, gen, dev):
             main = (qs, k, v, valid, err)
     qs, k, v, valid, err = main
     b, L, h, kv, hd = MAIN_DECODE
-    ms = time_ms(torch, lambda: da.decode_attention(qs, k, v, valid))
-    plain_ms = time_ms(torch, lambda: ref.decode_attention_ref(
-        qs, k, v, valid, scale=1.0))
     # library yardstick: one SDPA call on the same inputs with the kv heads
     # expanded and the mask as attn_mask (never used by the port)
     import torch.nn.functional as F
     qt = qs.transpose(1, 2)
     kt, vt = (t.repeat_interleave(h // kv, dim=2).transpose(1, 2)
               for t in (k, v))
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=valid[None, None, None, :], scale=1.0))
+    t = timings(torch, lambda: da.decode_attention(qs, k, v, valid),
+                lambda: ref.decode_attention_ref(qs, k, v, valid, scale=1.0),
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=valid[None, None, None, :],
+                    scale=1.0))
     n_valid = int(valid.sum().item())
     nbytes = 4 * (2 * b * n_valid * kv * hd + 2 * b * h * hd) + L
-    bound_ms, bound_by = bound(nbytes, 4.0 * b * h * n_valid * hd, F32_FLOPS)
+    t["bound_ms"], t["bound_by"] = bound(nbytes, 4.0 * b * h * n_valid * hd,
+                                         F32_FLOPS)
     emit({"phase": "kernel:decode_attention", "cases": cases, "ok": True,
-          "main_shape": list(MAIN_DECODE), "main_valid": n_valid, "ms": ms,
-          "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
-          "bound_by": bound_by, "bytes": nbytes})
+          "main_shape": list(MAIN_DECODE), "main_valid": n_valid,
+          "bytes": nbytes, **t})
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:76",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+            "max_abs_err": err, **{key: t[key] for key in SUMMARY_TIMES}}
 
 
 def ssd_work(b, s, h, p, n, chunk):
@@ -411,27 +595,23 @@ def phase_ssd(torch, gen, dev):
     for shape in SSD_CASES[-2:]:                 # the two served shapes
         x, dt, A, bm, cm, err = inputs[shape]
         chunk = shape[-1]
-        ms = time_ms(torch, lambda: ssd.ssd_scan(x, dt, A, bm, cm,
-                                                 chunk=chunk))
-        plain_ms = time_ms(torch, lambda: ref.ssd_scan_ref(
-            x, dt, A, bm, cm, chunk=chunk), iters=5)
+        t = timings(torch, lambda: ssd.ssd_scan(x, dt, A, bm, cm,
+                                                chunk=chunk),
+                    lambda: ref.ssd_scan_ref(x, dt, A, bm, cm, chunk=chunk),
+                    plain_iters=5)
         nbytes, flops = ssd_work(*shape)
-        bound_ms, bound_by = bound(nbytes, flops, F32_FLOPS)
-        timed[shape] = {"shape": list(shape), "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by,
-                        "bytes": nbytes, "flops": flops, "max_abs_err": err}
+        t["bound_ms"], t["bound_by"] = bound(nbytes, flops, F32_FLOPS)
+        timed[shape] = {"shape": list(shape), "bytes": nbytes,
+                        "flops": flops, "max_abs_err": err, **t}
     main = timed[MAIN_SSD]
     emit({"phase": "kernel:ssd_scan", "cases": cases, "ok": True,
           "main_shape": list(MAIN_SSD), "timed": list(timed.values()),
-          "ms": main["ms"], "plain_ms": main["plain_ms"], "library_ms": None,
-          "bound_ms": main["bound_ms"], "bound_by": main["bound_by"]})
+          **{key: main[key] for key in SUMMARY_TIMES}})
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:73",
             "max_abs_err": main["max_abs_err"],
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": None}
+            **{key: main[key] for key in SUMMARY_TIMES}}
 
 
 # ---------------------------------------------------------------------------

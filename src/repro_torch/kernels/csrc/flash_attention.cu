@@ -1,310 +1,494 @@
-// Blocked causal GQA attention with online softmax, on Hopper.
+// Blocked causal GQA attention with online softmax, on Hopper's tensor cores.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention, _kernel at :26, pallas_call at :95).
 //
-// Bound on this card: at the serving shapes (S=256, hd=128, f32) each query
-// row does 2*S*hd multiply-adds against 2*S*hd*4 bytes of K and V that many
-// rows share, so the work is operations, not bytes; in f32 it runs on the CUDA
-// cores (the serving path is all f32, and TF32 tensor cores would not meet
-// the f32 tolerance).  On the CUDA cores the limit in practice is how many
-// shared-memory reads feed each multiply-add.
+// Bound on this card: at the serving shapes (S=256, f32) the 3xTF32
+// products and the bytes (Q, K, V and O once each) take about as long:
+// 0.026 and 0.030 ms at qwen3's chunk (B16 H16 KV8 hd128), 0.020 and 0.019
+// at hymba's (B16 H25 KV5 hd64).  The products run on
+// the tensor cores in TF32 (mma.sync m16n8k8), and the f32 tolerance is kept
+// by the 3xTF32 split: x ≈ hi + lo with hi = tf32(x) and lo = x - hi (see
+// split()), and a·b ≈ a_lo·b_hi + a_hi·b_lo + a_hi·b_hi, accumulated in f32;
+// only lo·lo (about 2^-22 of a·b) is dropped.  One TF32 pass keeps 10
+// mantissa bits, which is not enough: on the H100, at B16 S256 H16 KV8
+// hd128 causal with q pre-scaled, the plain version with TF32 matmuls (one
+// pass) is 2.5e-3 off a float64 reference, with 5.8 M elements over the f32
+// tolerance of 2e-5, where this kernel is 3.8e-6 off with none over it (the
+// plain version in f32: 1.9e-6; chip_smoke.py, kernel:flash_attention).
+// So the operations bound is 3 x the operations over the TF32 tensor-core
+// rate (495 TFLOP/s dense on an H100 SXM).  bf16
+// inputs are exact in TF32: Q·Kᵀ takes one pass, and P·V two (P is split, V
+// is exact).
 //
 // Design: the TPU kernel walked kv blocks along a sequential grid axis with
-// the softmax state in VMEM scratch.  Here one block of 4 warps owns 64 query
-// rows of one (batch, head) and loops over kv tiles of 32 rows inside the
-// block; each warp owns 16 of the rows, and the running max, denominator and
-// output accumulator of each row stay in registers.  The lanes of a warp form
-// 4 row groups x 8 column groups, so each lane computes a 4x4 register tile
-// of the scores (rows rg, rg+4, rg+8, rg+12 x keys cg, cg+8, cg+16, cg+24)
-// and a 4 x 4·NC tile of the output (the same rows x dims 4·cg + 32·c):
-// every 16-byte shared-memory read feeds 16 multiply-adds, and the row
-// statistics reduce over only 8 lanes.  The probabilities pass from the
-// score layout to the P·V layout through a small per-warp tile in shared
-// memory.  Shared rows are padded to 4 mod 32 floats, so the reads are free
-// of bank conflicts.  Each K/V tile is loaded once for
-// the block's 64 rows, 16 bytes a lane where the pointers allow it.  Tiles
-// that the causal or window mask leaves empty are skipped, by the block and,
-// within a loaded tile, by each warp (the result is the same: a tile with no
-// valid key contributes p = 0).  The ragged S edge is masked in the kernel and
-// the head dim is any value up to 256; nothing is padded in device memory.  q
-// arrives pre-scaled by hd^-0.5 in its own dtype, as on the TPU.  Q, K and V
-// tiles are converted to f32 in shared memory (about 77 KB at hd=128, so the
-// launch raises the dynamic shared-memory limit above its 48 KB default).
+// the softmax state in VMEM scratch.  Here one block of 4 warps owns 64
+// query rows of one (batch, head) and loops over kv tiles inside the block;
+// each warp owns 16 rows (one mma row tile), and the running max, the
+// denominator and the output accumulator stay in registers in the mma
+// accumulator layout: a lane holds rows g and g+8 (g = lane/4) and columns
+// 2t, 2t+1 (t = lane%4) of every 8-wide tile, so a row's max and sum reduce
+// over the 4 lanes of a quad.  The contraction order inside an 8-wide mma
+// step is free, which the layouts use: in Q·Kᵀ a lane reads 4 consecutive
+// dims of a row as one 16-byte (f32) or 8-byte (bf16) shared-memory read and
+// feeds them to two k-steps; in P·V the score accumulator is reused as the A
+// operand with keys 2t, 2t+1 in the place of columns t, t+4, and V's rows
+// 2t, 2t+1 are read to match.  Row strides are padded so that every
+// fragment read is free of bank conflicts (Q and K: 16 mod 32 words; V: 4
+// mod 32 f32, 8 mod 32 bf16 elements).  The split costs more instructions
+// than the mma it feeds, so the kernel is bound by issue, not by the tensor
+// cores: it keeps the split to three integer and float instructions and
+// runs the correction products on accumulators of their own, so that more
+// mma chains are in flight.
+//
+// K and V tiles are staged by cp.async (16 bytes a thread, zero-filled past
+// S) into a ring of two stages: the next tile's copy is issued right after
+// the barrier that frees its stage, so it overlaps this tile's products,
+// with one barrier per tile.  The tile is as long as three blocks to an SM
+// allow (Tile::BKV: 16 keys at hd 128 in f32, 32 at hd 64).  One block per
+// (batch, query head): the group's other heads read the same K/V tile from
+// L2 (hymba's group of 5 and qwen3's of 2 both fit their batch row's K/V in
+// L2 many times over).  The blocks of the last query tiles, which see the
+// most keys under a causal mask, are launched first.  Tiles that the causal
+// or window mask leaves empty are skipped by the block and, within a
+// loaded tile, by each warp; a masked score is -inf, so its probability is
+// 0, and the row max starts at -1e30 as on the TPU (a row with no valid
+// key, which only a padded row past S can be, ends at 0 / max(0, 1e-30) =
+// 0).  The ragged S edge is masked in the kernel, the head dim is any value
+// up to 256, zero-padded to a multiple of 16 in shared memory only; rows of
+// hd % (16 bytes) != 0 or unaligned bases take element loads and stores.  q
+// arrives pre-scaled by hd^-0.5 in its own dtype, as on the TPU.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <type_traits>
+
 namespace {
 
 constexpr int kWarps = 4;
-constexpr int kWarpRows = 16;              // query rows per warp
-constexpr int kBQ = kWarps * kWarpRows;    // query rows per block
-constexpr int kBKV = 32;                   // kv rows per tile
-constexpr int kLdP = 16;                   // per-warp P tile: [kBKV][kLdP]
-constexpr float kNegInf = -1e30f;
+constexpr int kThreads = kWarps * 32;
+constexpr int kBQ = kWarps * 16;             // query rows per block
+constexpr float kNegInf = -1e30f;            // initial row max
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr size_t kSmemPerSM = 228 * 1024;    // of which 1 KB per block is
+                                             // the system's
+
+// Shared-memory layout for head dims padded to HD = 16·NG.  The kv tile is
+// the longest of 64, 32 and 16 keys that lets three blocks share an SM: on
+// the H100 at hd 128 in f32, 16-key tiles with three blocks to an SM ran
+// 6 % faster than 32-key tiles with two, and 64-key tiles with one slower
+// still (PERF.md).
+template <typename T, int NG>
+struct Tile {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int HD = 16 * NG;
+  static constexpr int NT = HD / 8;          // 8-wide output column tiles
+  static constexpr int kMod = kF32 ? 32 : 64;
+  static constexpr int LD = HD + (kMod + 16 - HD % kMod) % kMod;  // Q, K
+  static constexpr int LDV = HD + (32 + (kF32 ? 4 : 8) - HD % 32) % 32;
+  static constexpr size_t bytes(int bkv) {
+    return sizeof(T) * ((size_t)kBQ * LD + 2 * (size_t)bkv * (LD + LDV));
+  }
+  static constexpr bool fits3(int bkv) {
+    return 3 * (bytes(bkv) + 1024) <= kSmemPerSM;
+  }
+  static constexpr int BKV = fits3(64) ? 64 : fits3(32) ? 32 : 16;
+  static constexpr int kMinBlocks = fits3(BKV) ? 3 : 1;
+  static constexpr int NJ = BKV / 8;         // 8-key slices of a tile
+  static constexpr size_t SMEM = bytes(BKV);
+};
 
 template <typename T>
-__device__ __forceinline__ float to_f32(T x);
+__device__ __forceinline__ T zero();
 template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
+__device__ __forceinline__ float zero<float>() { return 0.f; }
 template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
+__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// four consecutive shared-memory elements as f32
+__device__ __forceinline__ void frag4(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
 }
-
-// four consecutive elements as f32 (16 bytes of f32, 8 of bf16)
-__device__ __forceinline__ float4 load4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+__device__ __forceinline__ void frag4(const __nv_bfloat16* p, float (&x)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
+  x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
 }
 
-// Shared tile dst[rows x ld] (f32) <- rows first.. of src (row r at
-// src + (first + r) * stride), zero past S and past hd.  A warp to a row.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, int ld, int rows,
-                                          const T* __restrict__ src,
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store1(float* p, float a) { *p = a; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float a) {
+  *p = __float2bfloat16(a);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(s), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// x ≈ hi + lo, both TF32: hi = cvt.rna.tf32.f32(x), written out for finite
+// x (add half a TF32 ulp to the magnitude, drop the 13 low bits) because
+// the PTX conversion also guards inf and NaN, which costs two more
+// instructions; lo = x - hi is exact in f32, and the tensor cores read its
+// top 19 bits, which truncates it to TF32 (an error of at most 2^-21 |x|,
+// against 2^-22 for rounding it, which would take one more instruction).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a·b on the tensor cores: a 16x8 (row), b 8x8 (col), d 16x8 f32
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Shared rows dst[r * LDS + c] (c < hd), r < ROWS, <- rows first + r of src,
+// zero past S.  16-byte cp.async copies when vec, element loads otherwise;
+// rows of exactly HD elements (the serving shapes) take a copy loop whose
+// trip count and offsets are known at compile time.
+template <typename T, int LDS, int HD, int ROWS>
+__device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src,
                                           long long stride, int first, int S,
                                           int hd, bool vec) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < rows; r += kWarps) {
+  if (vec && hd == HD) {
+    constexpr int E = 16 / (int)sizeof(T), PR = HD / E, N = ROWS * PR;
+#pragma unroll
+    for (int u = 0; u < (N + kThreads - 1) / kThreads; ++u) {
+      const int i = threadIdx.x + u * kThreads;
+      if (N % kThreads != 0 && i >= N) break;
+      const int r = i / PR, c = (i % PR) * E, p = first + r;
+      cp_async16(dst + r * LDS + c,
+                 src + (long long)min(p, S - 1) * stride + c, p < S);
+    }
+    return;
+  }
+  const int E = vec ? 16 / (int)sizeof(T) : 1;
+  const int per_row = hd / E;
+  const int dr = kThreads / per_row, dc = kThreads - dr * per_row;
+  int r = threadIdx.x / per_row, c = threadIdx.x - r * per_row;
+  while (r < ROWS) {
     const int p = first + r;
-    const T* row = src + (long long)p * stride;
-    float* out = dst + r * ld;
-    if (vec) {               // hd % 4 == 0 and aligned rows
-      for (int c = lane * 4; c < ld; c += 128) {
-        const float4 x = (p < S && c < hd) ? load4(row + c)
-                                           : make_float4(0.f, 0.f, 0.f, 0.f);
-        *reinterpret_cast<float4*>(out + c) = x;
-      }
-    } else {
-      for (int c = lane; c < ld; c += 32)
-        out[c] = (p < S && c < hd) ? to_f32(row[c]) : 0.f;
+    if (vec)
+      cp_async16(dst + r * LDS + c * E,
+                 src + (long long)min(p, S - 1) * stride + c * E, p < S);
+    else
+      dst[r * LDS + c] = p < S ? src[(long long)p * stride + c] : zero<T>();
+    r += dr;
+    c += dc;
+    if (c >= per_row) {
+      c -= per_row;
+      ++r;
     }
   }
 }
 
-// max / sum over the 8 lanes of a row group (lanes 8g .. 8g+7)
-__device__ __forceinline__ float group_max(float x) {
-  for (int o = 4; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float group_sum(float x) {
-  for (int o = 4; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-// q: (B,S,H,hd), k/v: (B,S,KV,hd), o: (B,S,H,hd).  NC = ceil(hd / 32): each
-// lane owns dims 4·cg + 32·c + e (c < NC, e < 4) of its 4 rows.  ld: shared
-// row stride of Q and K in floats (>= hd rounded up to 4, = 4 mod 32); V rows
-// are 32·NC floats.
-template <typename T, int NC>
-__global__ void __launch_bounds__(kWarps * 32)
+// q: (B,S,H,hd), k/v: (B,S,KV,hd), o: (B,S,H,hd); hd <= 16·NG.
+template <typename T, int NG>
+__global__ void __launch_bounds__(kThreads, (Tile<T, NG>::kMinBlocks))
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int S, int H, int KV,
-             int hd, int causal, int window, int ld, int vec) {
+             int hd, int causal, int window, int vec) {
+  using L = Tile<T, NG>;
+  constexpr int LD = L::LD, LDV = L::LDV, BKV = L::BKV, NJ = L::NJ,
+                NT = L::NT, HD = L::HD;
+  constexpr bool kF32 = L::kF32;
   extern __shared__ float4 smem4[];
-  constexpr int ldv = 32 * NC;
-  float* Qs = reinterpret_cast<float*>(smem4);   // kBQ  x ld
-  float* Ks = Qs + kBQ * ld;                     // kBKV x ld
-  float* Vs = Ks + kBKV * ld;                    // kBKV x ldv
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
+  T* Qs = reinterpret_cast<T*>(smem4);       // kBQ x LD
+  T* Ks = Qs + kBQ * LD;                     // 2 stages of BKV x LD
+  T* Vs = Ks + 2 * BKV * LD;                 // 2 stages of BKV x LDV
+  // query tiles last in the launch order, the longest (last rows of a
+  // causal mask) first, so the short ones fill the tail of the grid
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;
   const int kvh = h / (H / KV);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rg = lane >> 3, cg = lane & 7;       // row group, column group
-  float* Ps = Vs + kBKV * ldv + warp * kBKV * kLdP;   // [key][row]
+  const int g = lane >> 2, t = lane & 3;
 
-  load_tile(Qs, ld, kBQ, q + ((long long)b * S * H + h) * hd,
-            (long long)H * hd, q0, S, hd, vec);
-
-  // this lane's rows: w_first + rg + 4·r, r < 4 (interleaved, so the 4 row
-  // groups read 4 consecutive Q rows: distinct banks)
-  const int w_first = q0 + warp * kWarpRows;
-  const int w_last = min(w_first + kWarpRows, S) - 1;
-  const int row0 = w_first + rg;
-  float m_i[4], l_i[4], acc[4][NC][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m_i[r] = kNegInf;
-    l_i[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[r][c][e] = 0.f;
+  if (hd < HD) {     // the padded dims are read as zeros by Q·Kᵀ
+    const int w = HD - hd;
+    for (int i = threadIdx.x; i < (kBQ + 2 * BKV) * w; i += kThreads)
+      Qs[(i / w) * LD + hd + i % w] = zero<T>();   // Q and both K stages
+    for (int i = threadIdx.x; i < 2 * BKV * w; i += kThreads)
+      Vs[(i / w) * LDV + hd + i % w] = zero<T>();
   }
 
   const int q_last = min(q0 + kBQ, S) - 1;
   const int kv_end = causal ? q_last + 1 : S;
   const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_first = kv_begin / BKV, t_end = (kv_end + BKV - 1) / BKV;
   const long long kv_off = ((long long)b * S * KV + kvh) * hd;
   const long long kv_stride = (long long)KV * hd;
-  const float* qrow = Qs + (warp * kWarpRows + rg) * ld;
-  for (int t = kv_begin / kBKV; t * kBKV < kv_end; ++t) {
-    const int k0 = t * kBKV;
-    __syncthreads();   // the previous tile is no longer read
-    load_tile(Ks, ld, kBKV, k + kv_off, kv_stride, k0, S, hd, vec);
-    load_tile(Vs, ldv, kBKV, v + kv_off, kv_stride, k0, S, hd, vec);
-    __syncthreads();
+  load_rows<T, LD, HD, kBQ>(Qs, q + ((long long)b * S * H + h) * hd,
+                            (long long)H * hd, q0, S, hd, vec);
+  load_rows<T, LD, HD, BKV>(Ks, k + kv_off, kv_stride, t_first * BKV, S, hd,
+                            vec);
+  load_rows<T, LDV, HD, BKV>(Vs, v + kv_off, kv_stride, t_first * BKV, S, hd,
+                             vec);
+  cp_async_commit();
+
+  const int w_first = q0 + warp * 16;
+  const int w_last = min(w_first + 16, S) - 1;
+  const int row0 = w_first + g, row1 = row0 + 8;
+  float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const T* qa_row = Qs + (warp * 16 + g) * LD + 4 * t;
+  const T* qb_row = qa_row + 8 * LD;
+
+  for (int it = t_first; it < t_end; ++it) {
+    const int st = (it - t_first) & 1;
+    cp_async_wait_all();
+    __syncthreads();   // tile it is in; every warp is done with stage st^1
+    if (it + 1 < t_end) {
+      const int nx = (it + 1) * BKV;
+      load_rows<T, LD, HD, BKV>(Ks + (st ^ 1) * BKV * LD, k + kv_off,
+                                kv_stride, nx, S, hd, vec);
+      load_rows<T, LDV, HD, BKV>(Vs + (st ^ 1) * BKV * LDV, v + kv_off,
+                                 kv_stride, nx, S, hd, vec);
+      cp_async_commit();
+    }
+    const int k0 = it * BKV;
     if (w_first > w_last || (causal && k0 > w_last) ||
-        (window > 0 && k0 + kBKV - 1 <= w_first - window))
+        (window > 0 && k0 + BKV - 1 <= w_first - window))
       continue;        // warp-uniform: no valid key for any of its rows
+    const bool full = k0 + BKV <= S &&
+                      (!causal || k0 + BKV - 1 <= w_first) &&
+                      (window <= 0 || k0 > w_last - window);
+    const T* Kt = Ks + st * BKV * LD + g * LD + 4 * t;
+    const T* Vt = Vs + st * BKV * LDV + 2 * t * LDV + g;
 
-    // scores: rows row0 + 4·r, keys k0 + cg + 8·j
-    float s[4][4];
+    // scores S[row][key]: s[j] is the accumulator tile of keys k0 + 8j ..,
+    // c[j] that of the two correction products (two chains of mma each)
+    float s[NJ][4], c[NJ][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < hd; d += 4) {
-      float4 qq[4], kk[4];
+      for (int e = 0; e < 4; ++e) s[j][e] = c[j][e] = 0.f;
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-        qq[r] = *reinterpret_cast<const float4*>(qrow + 4 * r * ld + d);
+    for (int G = 0; G < NG; ++G) {
+      // dims 16G + 4t .. +3 of rows g and g+8: k-step 0 takes dims 4t, 4t+1
+      // as columns t, t+4; k-step 1 takes 4t+2, 4t+3
+      float qa[4], qb[4];
+      frag4(qa_row + 16 * G, qa);
+      frag4(qb_row + 16 * G, qb);
+      uint32_t ah[2][4], al[2][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kk[j] = *reinterpret_cast<const float4*>(Ks + (cg + 8 * j) * ld + d);
+      for (int ks = 0; ks < 2; ++ks) {
+        const float x[4] = {qa[2 * ks], qb[2 * ks], qa[2 * ks + 1],
+                            qb[2 * ks + 1]};
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[r][j] = fmaf(qq[r].x, kk[j].x, s[r][j]);
-          s[r][j] = fmaf(qq[r].y, kk[j].y, s[r][j]);
-          s[r][j] = fmaf(qq[r].z, kk[j].z, s[r][j]);
-          s[r][j] = fmaf(qq[r].w, kk[j].w, s[r][j]);
+        for (int i = 0; i < 4; ++i) {
+          if constexpr (kF32) split(x[i], ah[ks][i], al[ks][i]);
+          else ah[ks][i] = __float_as_uint(x[i]);     // bf16: exact
         }
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        float kk[4];                 // key k0 + 8j + g, the same dims
+        frag4(Kt + 8 * j * LD + 16 * G, kk);
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          if constexpr (kF32) {
+            uint32_t bh0, bl0, bh1, bl1;
+            split(kk[2 * ks], bh0, bl0);
+            split(kk[2 * ks + 1], bh1, bl1);
+            mma(c[j], al[ks], bh0, bh1);
+            mma(c[j], ah[ks], bl0, bl1);
+            mma(s[j], ah[ks], bh0, bh1);
+          } else {
+            mma(s[j], ah[ks], __float_as_uint(kk[2 * ks]),
+                __float_as_uint(kk[2 * ks + 1]));
+          }
+        }
+      }
     }
 
-    // online softmax per row, reduced over the row group's 8 lanes; s
-    // becomes the probabilities
+    // online softmax; lane holds rows row0 (e = 0, 1) and row1 (e = 2, 3),
+    // keys k0 + 8j + 2t + (e & 1)
+    float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int qp = row0 + 4 * r;
-      bool ok[4];
-      float mx = kNegInf;
+    for (int j = 0; j < NJ; ++j) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + cg + 8 * j;
-        ok[j] = kp < S && (!causal || kp <= qp) &&
-                (window <= 0 || kp > qp - window);
-        mx = fmaxf(mx, ok[j] ? s[r][j] : kNegInf);
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (kF32) s[j][e] += c[j][e];
+        if (!full) {
+          const int qp = e < 2 ? row0 : row1;
+          const int kp = k0 + 8 * j + 2 * t + (e & 1);
+          const bool ok = kp < S && (!causal || kp <= qp) &&
+                          (window <= 0 || kp > qp - window);
+          if (!ok) s[j][e] = -INFINITY;
+        }
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
       }
-      const float m_new = fmaxf(m_i[r], group_max(mx));
-      const float alpha = expf(m_i[r] - m_new);
-      float sum = 0.f;
+    }
+    float alpha[2], sum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[r][j] = ok[j] ? expf(s[r][j] - m_new) : 0.f;
-        sum += s[r][j];
-      }
-      l_i[r] = l_i[r] * alpha + group_sum(sum);
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+      const float m_new = fmaxf(m_i[r], mx[r]);
+      alpha[r] = exp2f((m_i[r] - m_new) * kLog2e);
       m_i[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[r][c][e] *= alpha;
     }
-    // this warp's P tile, P[key][4·rg + r]: the lane's 4 rows side by side
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(Ps + (cg + 8 * j) * kLdP + 4 * rg) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncwarp();
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f((s[j][e] - m_i[e >> 1]) * kLog2e);   // masked: 0
+        sum[e >> 1] += s[j][e];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_i[r] = l_i[r] * alpha[r] + sum[r];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
 
-    // P·V: rows row0 + 4·r, dims 4·cg + 32·c + e
-#pragma unroll 4
-    for (int j = 0; j < kBKV; ++j) {
-      const float4 p = *reinterpret_cast<const float4*>(Ps + j * kLdP + 4 * rg);
-      const float pr[4] = {p.x, p.y, p.z, p.w};
+    // O += P·V: the score tile of keys 8j.. is the A operand with keys 2t,
+    // 2t+1 as columns t, t+4; B reads V rows 8j + 2t and 8j + 2t + 1
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float4 vv =
-            *reinterpret_cast<const float4*>(Vs + j * ldv + 4 * cg + 32 * c);
+    for (int j = 0; j < NJ; ++j) {
+      const float p[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+      uint32_t ph[4], pl[4];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          acc[r][c][0] = fmaf(pr[r], vv.x, acc[r][c][0]);
-          acc[r][c][1] = fmaf(pr[r], vv.y, acc[r][c][1]);
-          acc[r][c][2] = fmaf(pr[r], vv.z, acc[r][c][2]);
-          acc[r][c][3] = fmaf(pr[r], vv.w, acc[r][c][3]);
+      for (int i = 0; i < 4; ++i) split(p[i], ph[i], pl[i]);
+      const T* vj = Vt + 8 * j * LDV;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float v0 = to_f32(vj[8 * n]), v1 = to_f32(vj[LDV + 8 * n]);
+        if constexpr (kF32) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split(v0, bh0, bl0);
+          split(v1, bh1, bl1);
+          mma(acc[n], pl, bh0, bh1);
+          mma(acc[n], ph, bl0, bl1);
+          mma(acc[n], ph, bh0, bh1);
+        } else {                     // bf16 V is exact in TF32
+          mma(acc[n], pl, __float_as_uint(v0), __float_as_uint(v1));
+          mma(acc[n], ph, __float_as_uint(v0), __float_as_uint(v1));
         }
       }
     }
   }
 
+  // the denominators are the quad's partial sums
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int qp = row0 + 4 * r;
+  for (int r = 0; r < 2; ++r) {
+    float l = l_i[r];
+    l += __shfl_xor_sync(kFull, l, 1);
+    l += __shfl_xor_sync(kFull, l, 2);
+    const int qp = r ? row1 : row0;
     if (qp >= S) continue;
-    const float denom = fmaxf(l_i[r], 1e-30f);
+    const float denom = fmaxf(l, 1e-30f);
     T* orow = o + (((long long)b * S + qp) * H + h) * hd;
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int d = 4 * cg + 32 * c + e;
-        if (d < hd) orow[d] = from_f32<T>(acc[r][c][e] / denom);
+    for (int n = 0; n < NT; ++n) {
+      const int d = 8 * n + 2 * t;
+      const float x0 = acc[n][2 * r] / denom, x1 = acc[n][2 * r + 1] / denom;
+      if (vec && d + 1 < hd) {
+        store2(orow + d, x0, x1);
+      } else {
+        if (d < hd) store1(orow + d, x0);
+        if (d + 1 < hd) store1(orow + d + 1, x1);
       }
+    }
   }
 }
 
-template <typename T, int NC>
+template <typename T, int NG>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
            int H, int KV, int hd, int causal, int window, cudaStream_t stream) {
-  const int hd4 = (hd + 3) / 4 * 4;
-  const int ld = hd4 + ((4 - hd4) % 32 + 32) % 32;    // = 4 mod 32
-  const size_t smem = sizeof(float) *
-      ((size_t)kBQ * ld + (size_t)kBKV * ld + (size_t)kBKV * 32 * NC +
-       (size_t)kWarps * kBKV * kLdP);
-  // 16-byte rows (8 for bf16) when hd % 4 == 0 and the bases are aligned
-  const uintptr_t align = sizeof(T) * 4 - 1;
-  const int vec = hd % 4 == 0 &&
-                  ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                    reinterpret_cast<uintptr_t>(v)) & align) == 0;
-  auto kern = flash_kernel<T, NC>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        (const void*)kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  using L = Tile<T, NG>;
+  auto kern = flash_kernel<T, NG>;
+  // the dynamic shared-memory limit is raised once per device and
+  // instantiation, so a launch captured in a CUDA graph is the launch alone
+  static std::atomic<unsigned long long> raised{0};
+  if (L::SMEM > 48 * 1024) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return (int)err;
+    const unsigned long long bit = 1ull << (dev & 63);
+    if (!(raised.load() & bit)) {
+      err = cudaFuncSetAttribute((const void*)kern,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)L::SMEM);
+      if (err != cudaSuccess) return (int)err;
+      // all of the SM's 228 KB as shared memory, so three blocks fit
+      err = cudaFuncSetAttribute((const void*)kern,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+      if (err != cudaSuccess) return (int)err;
+      raised.fetch_or(bit);
+    }
   }
-  dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  kern<<<grid, kWarps * 32, smem, stream>>>(
+  // 16-byte copies (and paired stores) when rows are whole 16-byte chunks
+  // and the bases are aligned
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(q) |
+                         reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) |
+                         reinterpret_cast<uintptr_t>(o);
+  const int vec = hd % (16 / (int)sizeof(T)) == 0 && (addr & 15) == 0;
+  dim3 grid(H, B, (S + kBQ - 1) / kBQ);
+  kern<<<grid, kThreads, L::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), S, H, KV, hd, causal,
-      window, ld, vec);
+      window, vec);
   return (int)cudaGetLastError();
 }
 
+// head dims padded to 32, 48, 64, 80, 96, 128, 192 or 256
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int B,
              int S, int H, int KV, int hd, int causal, int window,
              cudaStream_t st) {
-  switch ((hd + 31) / 32) {
-    case 1: return launch<T, 1>(q, k, v, o, B, S, H, KV, hd, causal, window, st);
-    case 2: return launch<T, 2>(q, k, v, o, B, S, H, KV, hd, causal, window, st);
-    case 3: return launch<T, 3>(q, k, v, o, B, S, H, KV, hd, causal, window, st);
-    case 4: return launch<T, 4>(q, k, v, o, B, S, H, KV, hd, causal, window, st);
-    case 5: return launch<T, 5>(q, k, v, o, B, S, H, KV, hd, causal, window, st);
-    case 6: return launch<T, 6>(q, k, v, o, B, S, H, KV, hd, causal, window, st);
-    case 7: return launch<T, 7>(q, k, v, o, B, S, H, KV, hd, causal, window, st);
-    case 8: return launch<T, 8>(q, k, v, o, B, S, H, KV, hd, causal, window, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const int n16 = (hd + 15) / 16;
+#define REPRO_FLASH(NG) \
+  return launch<T, NG>(q, k, v, o, B, S, H, KV, hd, causal, window, st)
+  if (n16 <= 2) REPRO_FLASH(2);
+  if (n16 <= 3) REPRO_FLASH(3);
+  if (n16 <= 4) REPRO_FLASH(4);
+  if (n16 <= 5) REPRO_FLASH(5);
+  if (n16 <= 6) REPRO_FLASH(6);
+  if (n16 <= 8) REPRO_FLASH(8);
+  if (n16 <= 12) REPRO_FLASH(12);
+  REPRO_FLASH(16);
+#undef REPRO_FLASH
 }
 
 }  // namespace

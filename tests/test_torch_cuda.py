@@ -44,6 +44,18 @@ def _randn(dev, seed, *shape):
     (1, 70, 4, 1, 256, 16, torch.float32),
     (1, 33, 2, 1, 50, 0, torch.float32),       # hd % 4 != 0: scalar loads
     (2, 64, 4, 2, 64, 0, torch.bfloat16),
+    # edges of the tensor-core tiling: 64 query rows a block, kv tiles of 16
+    # keys (f32 hd 128 and 256), 32 (f32 hd 64, bf16 hd 128) or 64 (bf16
+    # hd 64)
+    (2, 65, 4, 2, 128, 0, torch.float32),      # one row past a q tile
+    (1, 200, 16, 8, 128, 0, torch.float32),    # S not a multiple of 64
+    (1, 200, 25, 5, 64, 16, torch.float32),    # hymba's group, window < tile
+    (2, 130, 4, 2, 256, 0, torch.float32),
+    (2, 100, 4, 2, 50, 0, torch.float32),      # hd 50: padded to 64
+    (2, 65, 16, 8, 128, 0, torch.bfloat16),
+    (1, 200, 25, 5, 64, 16, torch.bfloat16),
+    (1, 70, 4, 1, 256, 0, torch.bfloat16),
+    (2, 100, 4, 2, 50, 0, torch.bfloat16),     # bf16 element loads
 ])
 def test_flash_kernel_matches_plain(dev, b, s, h, kv, hd, window, dtype):
     q = _randn(dev, 1, b, s, h, hd).to(dtype) * hd ** -0.5
@@ -83,6 +95,37 @@ def test_combine_kernel_matches_plain(dev, m, seg, c):
     want = ref.ensemble_accumulate_ref(part, p, w)
     ec.ensemble_combine(p, w, part, out=part)        # in place
     torch.testing.assert_close(part, want, atol=1e-5, rtol=0)
+
+
+def test_combine_kernel_on_a_row_offset_view(dev):
+    """M > 1 and C % 4 != 0 folded in place into rows 1.. of a larger
+    partial, as the combiner folds a span: element loads, no streaming
+    store."""
+    m, seg, c = 3, 20, 131
+    p = _randn(dev, 12, m, seg, c)
+    w = torch.softmax(_randn(dev, 13, m), 0)
+    big = _randn(dev, 14, seg + 1, c)
+    view = big[1:]
+    want = ref.ensemble_accumulate_ref(view, p, w)
+    first = big[0].clone()
+    ec.ensemble_combine(p, w, view, out=view)
+    torch.testing.assert_close(view, want, atol=1e-5, rtol=0)
+    assert torch.equal(big[0], first)                # row 0 untouched
+
+
+def test_combine_kernel_in_place_at_the_main_shape(dev):
+    """The combiner's call at qwen3's segment (M 1, seg 32, C 151936), in
+    place: one launch, and the plain version's result to the last bit."""
+    p = _randn(dev, 15, 1, 32, 151936)
+    w = torch.softmax(_randn(dev, 16, 1), 0)
+    part = _randn(dev, 17, 32, 151936)
+    want = ref.ensemble_accumulate_ref(part, p, w)
+    before = ec.launches.snapshot()["ensemble_combine"]
+    got = ec.ensemble_combine(p, w, part, out=part)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == part.data_ptr()
+    assert ec.launches.snapshot()["ensemble_combine"] == before + 1
+    torch.testing.assert_close(part, want, atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("qdtype", ["int8", "fp8"])
