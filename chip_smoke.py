@@ -21,7 +21,10 @@ Phases, one JSON line each; any failed phase exits non-zero:
    with no synchronise inside, over 1,000).  ``plain_ms`` is enqueued.
    ``ensemble_combine`` is timed in the form the combiner calls, a fold in
    place into the partial, against ``torch.add`` in place, each call on the
-   next of four sets of operands so that none is read from L2;
+   next of four sets of operands so that none is read from L2.  Flash, the
+   scan and decode are timed at qwen3's and hymba's served shapes; flash
+   and the scan also give their error against float64 beside the plain
+   version's and one TF32 pass's;
 4. end to end at full width, one phase per member pair: ``InferenceSystem``
    on one card, ``combine="pallas"``, ``use_kernel=True``, an fp32 member
    and the same widths at half the layers as an int8 member, with random
@@ -69,8 +72,9 @@ SRC = ROOT / "src"
 # published H100 SXM peaks (NVIDIA data sheet), at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12              # f32 on the CUDA cores
-TF32_FLOPS = 495e12            # TF32 on the tensor cores, dense; flash runs
-                               # every product three times (3xTF32)
+TF32_FLOPS = 495e12            # TF32 on the tensor cores, dense; flash and
+                               # the scan run every product three times
+                               # (3xTF32)
 
 FLASH_CASES = [                # (b, s, h, kv, hd, window, dtype) — JAX suite
     (2, 64, 4, 2, 32, 0, "float32"),
@@ -103,6 +107,8 @@ SSD_CASES = [                  # (b, s, h, p, n, chunk) — JAX suite
     (2, 100, 4, 32, 16, 16),   # ragged S
     (1, 64, 2, 64, 128, 64),
     (2, 200, 8, 64, 128, 64),  # ragged S with the mamba2 state
+    (2, 40, 3, 32, 16, 64),    # S shorter than one chunk
+    (1, 96, 2, 96, 32, 32),    # P 96: two blocks a head
     (16, 256, 64, 64, 128, 64),  # serving path, mamba2 member-0 chunk
     (16, 256, 50, 64, 16, 64),   # serving path, hymba member-0 chunk
 ]
@@ -117,9 +123,13 @@ DECODE_CASES = [              # (b, L, h, kv, hd, dtype, valid slots)
     (16, 1024, 4, 1, 256, "float32", "all"),      # gemma3's hd 256
     (4, 2048, 16, 8, 128, "float32", "leading"),  # first 600 slots invalid
     (4, 2048, 16, 8, 128, "float32", "random"),
+    (16, 2048, 16, 8, 128, "float32", "one"),
+    (16, 1024, 25, 5, 64, "bfloat16", "wrap"),
 ]
 MAIN_DECODE = (16, 2048, 16, 8, 128)
 MAIN_DECODE_VALID = 1088
+HYMBA_DECODE = (16, 1024, 25, 5, 64)          # the window ring, all valid
+DECODE_TIMED = ((MAIN_DECODE, "prefix"), (HYMBA_DECODE, "all"))
 MAIN_FLASH = (16, 256, 16, 8, 128)
 HYMBA_FLASH = (16, 256, 25, 5, 64)
 MAIN_SEG, MAIN_C = 32, 151936
@@ -127,6 +137,7 @@ COMBINE_SETS = 4               # (preds, partial) sets that the timed folds
                                # rotate over: 4 x 39 MB, so that no fold
                                # finds its operands in the 50 MB L2
 MAIN_SSD = (16, 256, 64, 64, 128, 64)
+HYMBA_SSD = (16, 256, 50, 64, 16, 64)
 MAX_FLIP_SHARE = 0.01          # int8 code flips allowed in the served Y
 
 
@@ -504,37 +515,31 @@ def decode_valid(torch, kind: str, L: int, gen, dev):
         return pos >= 600
     if kind == "random":
         return torch.rand((L,), generator=gen, device=dev) < 0.5
+    if kind == "one":                 # a single valid slot, mid-tile
+        return pos == L // 2 + 5
+    if kind == "wrap":                # a window ring that has wrapped
+        return (pos < 37) | (pos >= L - 100)
     return torch.ones((L,), dtype=torch.bool, device=dev)
 
 
-def phase_decode(torch, gen, dev):
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import ref
-    cases = []
-    main = None
-    for b, L, h, kv, hd, dt, kind in DECODE_CASES:
-        dtype = getattr(torch, dt)
-        q = torch.randn((b, 1, h, hd), generator=gen, device=dev).to(dtype)
-        k = torch.randn((b, L, kv, hd), generator=gen, device=dev).to(dtype)
-        v = torch.randn((b, L, kv, hd), generator=gen, device=dev).to(dtype)
-        valid = decode_valid(torch, kind, L, gen, dev)
-        scale = float(torch.tensor(hd ** -0.5, dtype=dtype))
-        qs = (q * scale).contiguous()
-        out = da.decode_attention(qs, k, v, valid)
-        want = ref.decode_attention_ref(qs, k, v, valid, scale=1.0)
-        torch.cuda.synchronize()
-        tol = 2e-5 if dtype == torch.float32 else 2e-2
-        err = close(torch, out, want, tol)
-        cases.append({"shape": [b, L, h, kv, hd], "dtype": dt, "valid": kind,
-                      "n_valid": int(valid.sum().item()),
-                      "max_abs_err": err, "tol": tol})
-        if (b, L, h, kv, hd) == MAIN_DECODE and dtype == torch.float32:
-            main = (qs, k, v, valid, err)
-    qs, k, v, valid, err = main
-    b, L, h, kv, hd = MAIN_DECODE
+def decode_inputs(torch, gen, dev, b, L, h, kv, hd, dtype):
+    """Random q (pre-scaled by hd^-0.5 in its own dtype, as the model
+    does), k and v of one decode case."""
+    q = torch.randn((b, 1, h, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, L, kv, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, L, kv, hd), generator=gen, device=dev).to(dtype)
+    scale = float(torch.tensor(hd ** -0.5, dtype=dtype))
+    return (q * scale).contiguous(), k, v
+
+
+def time_decode(torch, da, ref, qs, k, v, valid) -> dict:
+    """Times and bound of the decode kernel at one shape, beside SDPA's and
+    the plain version's."""
+    import torch.nn.functional as F
+    b, _, h, hd = qs.shape
+    kv = k.shape[2]
     # library yardstick: one SDPA call on the same inputs with the kv heads
     # expanded and the mask as attn_mask (never used by the port)
-    import torch.nn.functional as F
     qt = qs.transpose(1, 2)
     kt, vt = (t.repeat_interleave(h // kv, dim=2).transpose(1, 2)
               for t in (k, v))
@@ -544,16 +549,50 @@ def phase_decode(torch, gen, dev):
                     qt, kt, vt, attn_mask=valid[None, None, None, :],
                     scale=1.0))
     n_valid = int(valid.sum().item())
-    nbytes = 4 * (2 * b * n_valid * kv * hd + 2 * b * h * hd) + L
+    size = qs.element_size()
+    nbytes = size * (2 * b * n_valid * kv * hd + 2 * b * h * hd) + \
+        valid.numel()
     t["bound_ms"], t["bound_by"] = bound(nbytes, 4.0 * b * h * n_valid * hd,
                                          F32_FLOPS)
+    t["bytes"], t["n_valid"] = nbytes, n_valid
+    return t
+
+
+def phase_decode(torch, gen, dev):
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    cases = []
+    served = {}
+    for b, L, h, kv, hd, dt, kind in DECODE_CASES:
+        dtype = getattr(torch, dt)
+        qs, k, v = decode_inputs(torch, gen, dev, b, L, h, kv, hd, dtype)
+        valid = decode_valid(torch, kind, L, gen, dev)
+        out = da.decode_attention(qs, k, v, valid)
+        want = ref.decode_attention_ref(qs, k, v, valid, scale=1.0)
+        torch.cuda.synchronize()
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        err = close(torch, out, want, tol)
+        cases.append({"shape": [b, L, h, kv, hd], "dtype": dt, "valid": kind,
+                      "n_valid": int(valid.sum().item()),
+                      "max_abs_err": err, "tol": tol})
+        if ((b, L, h, kv, hd), kind) in DECODE_TIMED and \
+                dtype == torch.float32:
+            served[(b, L, h, kv, hd)] = (qs, k, v, valid, err)
+    timed = []
+    for shape, _ in DECODE_TIMED:
+        qs, k, v, valid, err = served[shape]
+        timed.append({"shape": list(shape), "max_abs_err": err,
+                      **time_decode(torch, da, ref, qs, k, v, valid)})
+    main = timed[0]
     emit({"phase": "kernel:decode_attention", "cases": cases, "ok": True,
-          "main_shape": list(MAIN_DECODE), "main_valid": n_valid,
-          "bytes": nbytes, **t})
+          "main_shape": list(MAIN_DECODE), "main_valid": main["n_valid"],
+          "bytes": main["bytes"], "timed": timed,
+          **{key: main[key] for key in SUMMARY_TIMES}})
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:76",
-            "max_abs_err": err, **{key: t[key] for key in SUMMARY_TIMES}}
+            "max_abs_err": main["max_abs_err"],
+            **{key: main[key] for key in SUMMARY_TIMES}}
 
 
 def ssd_work(b, s, h, p, n, chunk):
@@ -571,18 +610,63 @@ def ssd_work(b, s, h, p, n, chunk):
     return nbytes, 2.0 * macs
 
 
+def ssd_inputs(torch, gen, dev, b, s, h, p, n):
+    """Random x, dt (post-softplus), A (negative), B and C of one case."""
+    x = torch.randn((b, s, h, p), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=gen, device=dev))
+    A = -torch.exp(0.5 * torch.randn((h,), generator=gen, device=dev))
+    bm = torch.randn((b, s, n), generator=gen, device=dev)
+    cm = torch.randn((b, s, n), generator=gen, device=dev)
+    return x, dt, A, bm, cm
+
+
+def time_ssd(torch, ssd, ref, x, dt, A, bm, cm, chunk: int,
+             f64: bool = False) -> dict:
+    """Times and bounds of the scan kernel at one shape, beside the plain
+    version's; with ``f64``, also the errors against a float64 scan of the
+    kernel, the plain version in f32 and the plain version with TF32
+    matmuls (one TF32 pass)."""
+    b, s, h, p = x.shape
+    n = bm.shape[2]
+    t = timings(torch, lambda: ssd.ssd_scan(x, dt, A, bm, cm, chunk=chunk),
+                lambda: ref.ssd_scan_ref(x, dt, A, bm, cm, chunk=chunk),
+                plain_iters=5)
+    nbytes, flops = ssd_work(b, s, h, p, n, chunk)
+    # the products run three times each on the tensor cores (3xTF32)
+    t["bound_ms"], t["bound_by"] = bound(nbytes, 3 * flops, TF32_FLOPS)
+    t["bound_rate"] = "3 x operations / 495 TFLOP/s (3xTF32, tensor cores)"
+    t["cuda_core_bound_ms"] = bound(nbytes, flops, F32_FLOPS)[0]
+    t["bytes"], t["flops"] = nbytes, flops
+    if f64:
+        want = ref.ssd_scan_ref(*(a.double() for a in (x, dt, A, bm, cm)),
+                                chunk=chunk)
+        got = ssd.ssd_scan(x, dt, A, bm, cm, chunk=chunk)
+        plain = ref.ssd_scan_ref(x, dt, A, bm, cm, chunk=chunk)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            one_pass = ref.ssd_scan_ref(x, dt, A, bm, cm, chunk=chunk)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        atol = 1e-4 * max(1.0, want.abs().max().item())
+        errs = {}
+        for name, y in (("kernel", got), ("plain_f32", plain),
+                        ("plain_tf32_one_pass", one_pass)):
+            e = (y.double() - want).abs()
+            errs[name] = {"max_abs_err": e.max().item(),
+                          "over_tol": int((e > atol + 1e-4 * want.abs()).sum())}
+        t["err_vs_f64"] = {"atol": atol, "rtol": 1e-4, **errs}
+    return t
+
+
 def phase_ssd(torch, gen, dev):
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as ssd
     cases = []
     inputs = {}
     for b, s, h, p, n, chunk in SSD_CASES:
-        x = torch.randn((b, s, h, p), generator=gen, device=dev)
-        dt = torch.nn.functional.softplus(
-            torch.randn((b, s, h), generator=gen, device=dev))
-        A = -torch.exp(0.5 * torch.randn((h,), generator=gen, device=dev))
-        bm = torch.randn((b, s, n), generator=gen, device=dev)
-        cm = torch.randn((b, s, n), generator=gen, device=dev)
+        x, dt, A, bm, cm = ssd_inputs(torch, gen, dev, b, s, h, p, n)
         got = ssd.ssd_scan(x, dt, A, bm, cm, chunk=chunk)
         want = ref.ssd_scan_ref(x, dt, A, bm, cm, chunk=chunk)
         torch.cuda.synchronize()
@@ -592,17 +676,11 @@ def phase_ssd(torch, gen, dev):
                       "atol": tol, "rtol": 1e-4})
         inputs[(b, s, h, p, n, chunk)] = (x, dt, A, bm, cm, err)
     timed = {}
-    for shape in SSD_CASES[-2:]:                 # the two served shapes
+    for shape in (MAIN_SSD, HYMBA_SSD):          # the two served shapes
         x, dt, A, bm, cm, err = inputs[shape]
-        chunk = shape[-1]
-        t = timings(torch, lambda: ssd.ssd_scan(x, dt, A, bm, cm,
-                                                chunk=chunk),
-                    lambda: ref.ssd_scan_ref(x, dt, A, bm, cm, chunk=chunk),
-                    plain_iters=5)
-        nbytes, flops = ssd_work(*shape)
-        t["bound_ms"], t["bound_by"] = bound(nbytes, flops, F32_FLOPS)
-        timed[shape] = {"shape": list(shape), "bytes": nbytes,
-                        "flops": flops, "max_abs_err": err, **t}
+        timed[shape] = {"shape": list(shape), "max_abs_err": err,
+                        **time_ssd(torch, ssd, ref, x, dt, A, bm, cm,
+                                   shape[-1], f64=shape == MAIN_SSD)}
     main = timed[MAIN_SSD]
     emit({"phase": "kernel:ssd_scan", "cases": cases, "ok": True,
           "main_shape": list(MAIN_SSD), "timed": list(timed.values()),
@@ -611,7 +689,9 @@ def phase_ssd(torch, gen, dev):
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:73",
             "max_abs_err": main["max_abs_err"],
-            **{key: main[key] for key in SUMMARY_TIMES}}
+            **{key: main[key] for key in SUMMARY_TIMES},
+            "bound_rate": main["bound_rate"],
+            "cuda_core_bound_ms": main["cuda_core_bound_ms"]}
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,8 @@
 // at hymba's (B16 H25 KV5 hd64).  The products run on
 // the tensor cores in TF32 (mma.sync m16n8k8), and the f32 tolerance is kept
 // by the 3xTF32 split: x ≈ hi + lo with hi = tf32(x) and lo = x - hi (see
-// split()), and a·b ≈ a_lo·b_hi + a_hi·b_lo + a_hi·b_hi, accumulated in f32;
-// only lo·lo (about 2^-22 of a·b) is dropped.  One TF32 pass keeps 10
+// split() in tf32_mma.cuh), and a·b ≈ a_lo·b_hi + a_hi·b_lo + a_hi·b_hi,
+// accumulated in f32; only lo·lo (about 2^-22 of a·b) is dropped.  One TF32 pass keeps 10
 // mantissa bits, which is not enough: on the H100, at B16 S256 H16 KV8
 // hd128 causal with q pre-scaled, the plain version with TF32 matmuls (one
 // pass) is 2.5e-3 off a float64 reference, with 5.8 M elements over the f32
@@ -64,6 +64,8 @@
 
 #include <atomic>
 #include <type_traits>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -138,38 +140,11 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float a) {
   *p = __float2bfloat16(a);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(s), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// x ≈ hi + lo, both TF32: hi = cvt.rna.tf32.f32(x), written out for finite
-// x (add half a TF32 ulp to the magnitude, drop the 13 low bits) because
-// the PTX conversion also guards inf and NaN, which costs two more
-// instructions; lo = x - hi is exact in f32, and the tensor cores read its
-// top 19 bits, which truncates it to TF32 (an error of at most 2^-21 |x|,
-// against 2^-22 for rounding it, which would take one more instruction).
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d += a·b on the tensor cores: a 16x8 (row), b 8x8 (col), d 16x8 f32
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait_all;
+using repro::mma;
+using repro::split;
 
 // Shared rows dst[r * LDS + c] (c < hd), r < ROWS, <- rows first + r of src,
 // zero past S.  16-byte cp.async copies when vec, element loads otherwise;

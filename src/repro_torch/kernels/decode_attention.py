@@ -4,7 +4,8 @@ A CUDA tensor goes to the kernel, a CPU tensor to the plain version in
 ``ref.py``; there is no other path.  q arrives already scaled by hd^-0.5
 (``ops.decode_attention`` does that in q's dtype, as the JAX wrapper does).
 One launch is one call of the C entry, which runs the split pass over the
-cache and the pass that merges the splits.
+cache and the pass that merges the splits.  The splits' partial results
+share one scratch allocation.
 """
 from __future__ import annotations
 
@@ -22,7 +23,6 @@ _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
 TILE = 32                  # cache slots per tile (kT in the source)
 MAX_GROUP_DIMS = 2048      # query heads x hd one block holds (128 x kMaxR)
-BLOCKS_PER_SM = 8          # splits aim at this many blocks per SM
 
 
 def _check(q, k, v, valid):
@@ -50,22 +50,45 @@ def _check(q, k, v, valid):
         raise ValueError("decode_attention: inputs on different devices")
 
 
+def heads_per_block(h: int, kv: int, hd: int) -> int:
+    """The group's query heads in as few blocks as fit."""
+    return max(1, min(h // kv, MAX_GROUP_DIMS // hd))
+
+
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def _resident(index: int, hd: int, gb: int, bf16: bool) -> tuple:
+    """(SMs, split-kernel blocks that fit one SM) of device ``index``."""
+    fn = _build.function("repro_decode_occupancy",
+                         [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = fn(hd, gb, int(bf16), ctypes.addressof(blocks))
+    _build.check(err, "decode_attention")
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms, max(1, blocks.value)
 
 
-def split_plan(b: int, L: int, h: int, kv: int, hd: int, sms: int):
-    """(heads per block, tiles per split, splits): the group's heads in as
-    few blocks as fit, and L cut so that the grid has about BLOCKS_PER_SM
-    blocks per SM."""
-    group = h // kv
-    gb = max(1, min(group, MAX_GROUP_DIMS // hd))
-    pairs = b * kv * -(-group // gb)
+@functools.lru_cache(maxsize=None)
+def split_plan(b: int, L: int, h: int, kv: int, hd: int, sms: int,
+               blocks_per_sm: int = 3):
+    """(heads per block, tiles per split, splits): the cache's tiles dealt
+    to as many splits as one wave of the grid holds, ``blocks_per_sm``
+    blocks on each of ``sms`` SMs (the wrapper passes what fits an SM; a
+    second, partial wave costs more on the card than longer splits).
+    Split s takes tiles s, s + splits, s + 2·splits, ...
+    (:func:`split_tiles`), at most ``tps``."""
+    gb = heads_per_block(h, kv, hd)
+    pairs = b * kv * -(-(h // kv) // gb)
     ntiles = -(-L // TILE)
-    want = max(1, min(ntiles, -(-BLOCKS_PER_SM * sms // pairs)))
+    want = max(1, min(ntiles, blocks_per_sm * sms // pairs))
     tps = -(-ntiles // want)
     return gb, tps, -(-ntiles // tps)
+
+
+def split_tiles(split: int, nsplit: int, ntiles: int):
+    """The tiles that split ``split`` of ``nsplit`` walks, in order: the
+    kernel's loop over its tiles (``decode_split_kernel``)."""
+    return range(split, ntiles, nsplit)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -81,19 +104,25 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("decode_attention: inputs must be contiguous")
     b, _, h, hd = q.shape
     L, kv = k.shape[1], k.shape[2]
-    gb, tps, nsplit = split_plan(b, L, h, kv, hd, _sm_count(q.device.index))
-    m_part = torch.empty((b, h, nsplit), dtype=torch.float32, device=q.device)
-    l_part = torch.empty_like(m_part)
-    acc_part = torch.empty((b, h, nsplit, hd), dtype=torch.float32,
-                           device=q.device)
+    index = q.device.index
+    sms, resident = _resident(index, hd, heads_per_block(h, kv, hd),
+                              q.dtype == torch.bfloat16)
+    gb, tps, nsplit = split_plan(b, L, h, kv, hd, sms, resident)
+    # m, l and acc of every (batch, head, split): views of one allocation
+    n = b * h * nsplit
+    part = torch.empty(n * (hd + 2), dtype=torch.float32, device=q.device)
+    ptr = part.data_ptr()
     out = torch.empty_like(q)
     fn = _build.function("repro_decode_attention", _ARGS)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-                 m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-                 out.data_ptr(), b, L, h, kv, hd, gb, tps, nsplit,
-                 int(q.dtype == torch.bfloat16), stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), ptr,
+            ptr + 4 * n, ptr + 8 * n, out.data_ptr(), b, L, h, kv, hd, gb,
+            tps, nsplit, int(q.dtype == torch.bfloat16))
+    stream = torch.cuda.current_stream(index).cuda_stream
+    if index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:                  # the launch goes to the current device
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
     _build.check(err, "decode_attention")
     launches.add("decode_attention")
     return out

@@ -149,6 +149,15 @@ SSD_CASES = [                  # (b, s, h, p, n, chunk)
     (2, 100, 4, 32, 16, 16),   # ragged S
     (1, 64, 2, 64, 128, 64),   # the mamba2 state, N = 128
     (2, 150, 3, 64, 128, 64),  # ragged S with the mamba2 state
+    (2, 200, 8, 64, 128, 64),  # chip_smoke.py's ragged case
+    (2, 40, 3, 32, 16, 64),    # S shorter than one chunk
+    (1, 96, 2, 96, 32, 32),    # P 96: two blocks a head
+    (2, 50, 2, 36, 8, 8),      # P, N and chunk not whole mma tiles
+    (1, 70, 2, 32, 24, 32),    # N 24: three n tiles, not split
+    (1, 130, 2, 64, 256, 64),  # N 256: one stage of the ring
+    (16, 256, 64, 64, 128, 64),  # served: mamba2's chunk
+    (16, 256, 50, 64, 16, 64),   # served: hymba's chunk
+    (2, 512, 4, 64, 128, 64),  # a mamba2 prefill's 8 chunks
 ]
 
 
@@ -178,8 +187,11 @@ def test_ssd_kernel_takes_unaligned_inputs(dev):
     x, dt, A, bm, cm = _ssd_inputs(dev, b, s, h, p, n)
     x, bm, cm = (_randn(dev, 6, t.numel() + 1)[1:].view(t.shape)
                  for t in (x, bm, cm))
+    before = ssd.launches.snapshot()["ssd_scan"]
     got = ssd.ssd_scan(x, dt, A, bm, cm, chunk=16)
     want = ref.ssd_scan_ref(x, dt, A, bm, cm, chunk=16)
+    torch.cuda.synchronize()
+    assert ssd.launches.snapshot()["ssd_scan"] == before + 1
     tol = 1e-4 * max(1.0, want.abs().max().item())
     torch.testing.assert_close(got, want, atol=tol, rtol=1e-4)
 
@@ -195,6 +207,17 @@ DECODE_CASES = [               # (b, L, h, kv, hd, dtype, first valid, last)
     (2, 1024, 25, 5, 64, torch.float32, 0, 1024),    # hymba's group of 5
     (1, 77, 64, 1, 128, torch.float32, 0, 77),       # a group over 2048 / hd
     (2, 100, 4, 2, 50, torch.float32, 0, 100),       # hd % 4 != 0
+    # tiles dealt to the splits (tiles of 32 slots; 8 splits at 16x2048)
+    (2, 1024, 16, 8, 128, torch.float32, 0, 20),     # prefix under a tile
+    (2, 1024, 16, 8, 128, torch.bfloat16, 0, 20),
+    (2, 2048, 16, 8, 128, torch.float32, 777, 778),  # one valid slot
+    (2, 2048, 16, 8, 128, torch.bfloat16, 777, 778),
+    (4, 2048, 16, 8, 128, torch.float32, 0, 1100),   # prefix ends mid-tile
+    (4, 2048, 16, 8, 128, torch.bfloat16, 0, 1100),
+    (16, 2048, 16, 8, 128, torch.float32, 0, 90),    # 3 valid tiles, 8 splits
+    (16, 2048, 16, 8, 128, torch.bfloat16, 0, 90),
+    (2, 100, 4, 2, 50, torch.bfloat16, 0, 100),      # bf16 element loads
+    (2, 300, 8, 2, 80, torch.bfloat16, 0, 293),      # bf16 hd 80
 ]
 
 
@@ -228,6 +251,25 @@ def test_decode_kernel_takes_any_mask(dev, mask):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_takes_a_wrapped_window(dev, dtype):
+    """hymba's window ring after it wraps: the valid slots are the ring's
+    head and tail, in one launch."""
+    b, L, h, kv, hd = 4, 1024, 25, 5, 64
+    q = (_randn(dev, 7, b, 1, h, hd) * hd ** -0.5).to(dtype)
+    k = _randn(dev, 8, b, L, kv, hd).to(dtype)
+    v = _randn(dev, 9, b, L, kv, hd).to(dtype)
+    pos = torch.arange(L, device=dev)
+    valid = (pos < 37) | (pos >= L - 100)
+    before = dec.launches.snapshot()["decode_attention"]
+    got = dec.decode_attention(q, k, v, valid)
+    want = ref.decode_attention_ref(q, k, v, valid, scale=1.0)
+    torch.cuda.synchronize()
+    assert dec.launches.snapshot()["decode_attention"] == before + 1
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     q = torch.zeros((1, 8, 4, 32), device=dev)
     with pytest.raises(ValueError):
@@ -245,6 +287,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         ssd.ssd_scan(x, dt, A, bm, cm, chunk=16)
     with pytest.raises(TypeError):
         ssd.ssd_scan(x.double(), dt, A, bm, cm, chunk=16)
+    x, dt, A, bm, cm = _ssd_inputs(dev, 1, 16, 2, 8, 256)
+    with pytest.raises(ValueError):                      # over 227 KB
+        ssd.ssd_scan(x, dt, A, bm, cm, chunk=128)
     q1 = torch.zeros((1, 1, 4, 32), device=dev)
     kc = torch.zeros((1, 16, 2, 32), device=dev)
     ok = torch.ones(16, dtype=torch.bool, device=dev)

@@ -100,14 +100,27 @@ def test_decode_attention_wrapper_refuses_what_the_kernel_does_not_take():
         dec.decode_attention(q, k, k, ok[:4])
 
 
-def test_split_plan_covers_the_cache():
-    for b, L, h, kv, hd in [(16, 2048, 16, 8, 128), (16, 1024, 25, 5, 64),
-                            (16, 1024, 4, 1, 256), (1, 7, 64, 1, 128),
-                            (3, 300, 8, 2, 80)]:
-        gb, tps, n = dec.split_plan(b, L, h, kv, hd, 132)
-        ntiles = -(-L // dec.TILE)
-        assert 1 <= gb <= h // kv and gb * hd <= dec.MAX_GROUP_DIMS
-        assert (n - 1) * tps < ntiles <= n * tps
+@pytest.mark.parametrize("resident", [3, 6])
+@pytest.mark.parametrize("b,L,h,kv,hd", [
+    (16, 2048, 16, 8, 128), (16, 1024, 25, 5, 64), (16, 1024, 4, 1, 256),
+    (1, 7, 64, 1, 128), (3, 300, 8, 2, 80)])
+def test_split_plan_covers_the_cache(b, L, h, kv, hd, resident):
+    """The splits deal the tiles: together they walk every tile once, and
+    of any valid prefix of n tiles each split loads floor(n/S) or
+    ceil(n/S) (split_tiles mirrors the kernel's loop).  The grid is one
+    wave of ``resident`` blocks on each of 132 SMs, or one split."""
+    gb, tps, n = dec.split_plan(b, L, h, kv, hd, 132, resident)
+    ntiles = -(-L // dec.TILE)
+    assert 1 <= gb <= h // kv and gb * hd <= dec.MAX_GROUP_DIMS
+    assert (n - 1) * tps < ntiles <= n * tps
+    blocks = b * kv * -(-(h // kv) // gb) * n
+    assert n == 1 or blocks <= resident * 132
+    walks = [list(dec.split_tiles(s, n, ntiles)) for s in range(n)]
+    assert sorted(t for w in walks for t in w) == list(range(ntiles))
+    assert max(len(w) for w in walks) <= tps
+    for prefix in range(ntiles + 1):
+        loads = [sum(t < prefix for t in w) for w in walks]
+        assert set(loads) <= {prefix // n, -(-prefix // n)}, (prefix, loads)
 
 
 def test_quantize_kv_matches_jax():

@@ -24,6 +24,7 @@ from repro_torch import models as TM  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import quant as tquant  # noqa: E402
+from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
 from repro_torch.models.transformer import check_supported  # noqa: E402
 
@@ -88,6 +89,37 @@ def test_ssd_scan_wrapper_checks_its_inputs():
 
 # ---------------------------------------------------------------------------
 # Mixer pieces
+# (p, n, chunk) of every scan the card runs: chip_smoke.py's SSD_CASES, the
+# card tests (tests/test_torch_cuda.py) and the reduced members
+PLAN_CASES = [(32, 16, 16), (64, 32, 32), (64, 128, 64), (64, 16, 64),
+              (32, 24, 32), (32, 16, 64), (96, 32, 32), (36, 8, 8),
+              (64, 256, 64)]
+SMEM_LIMIT = 227 * 1024          # bytes of shared memory a block may have
+
+
+@pytest.mark.parametrize("p,n,chunk", PLAN_CASES)
+def test_ssd_plan_fits_shared_memory(p, n, chunk):
+    """The scan kernel's launch plan (the wrapper's mirror of the source's
+    make_plan) fits 227 KB, and on the tensor cores its warp pairs cover
+    the head dim."""
+    pl = tssd.plan(p, n, chunk)
+    assert pl["stages"] in (1, 2)
+    assert pl["smem"] <= SMEM_LIMIT and pl["scores_smem"] <= SMEM_LIMIT
+    assert pl["route"] == ("tensor_cores" if n >= 32 else "cuda_cores")
+    if pl["route"] == "tensor_cores":
+        w = pl["warps"]
+        assert w % 2 == 0 and 2 <= w <= 8
+        assert pl["groups"] * 8 * w >= p > (pl["groups"] - 1) * 8 * w
+    if (p, n, chunk) == (64, 128, 64):            # mamba2, served
+        assert pl["stages"] == 2 and pl["groups"] == 1
+
+
+def test_ssd_plan_refuses_what_does_not_fit():
+    assert tssd.plan(64, 128, 128)["stages"] == 0      # 246 KB for one stage
+    assert tssd.plan(64, 256, 64)["stages"] == 1
+    assert tssd.plan(64, 16, 256)["stages"] == 0       # CUDA cores: 372 KB
+
+
 def test_causal_conv_matches_jax():
     xbc, w = _np(1, 2, 24, 40), _np(2, 4, 40) * 0.3
     want = jssm._causal_conv(jnp.asarray(xbc), jnp.asarray(w))
