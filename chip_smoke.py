@@ -29,24 +29,45 @@ Phases, one JSON line each; any failed phase exits non-zero:
    on one card, ``combine="pallas"``, ``use_kernel=True``, an fp32 member
    and the same widths at half the layers as an int8 member, with random
    weights from ``--seed``: qwen3-1.7b (28 + 14 layers), mamba2-1.3b (48 +
-   24, SSM layers) and hymba-1.5b (32 + 16, hybrid attention + SSM layers).
-   Four concurrent requests of 40 rows each; ``Y`` is held against each
-   member's plain forward on the card combined in numpy, and the launch
-   counts must show that each attention or hybrid layer ran the flash kernel
-   and each SSM or hybrid layer the scan kernel once per chunk, that the
-   combine kernels ran, and that no plain version did.  Each system is shut
-   down and its memory freed before the next pair;
+   24, SSM layers), hymba-1.5b (32 + 16, hybrid attention + SSM layers),
+   granite-moe-3b-a800m (32 + 16, MoE with the capacity dispatch) and
+   llama-3.2-vision-11b at full width cut to 10 + 5 layers (two and one
+   units of 4 self + 1 cross-attention layer), fed one seeded frontend row
+   repeated.  Four concurrent requests of 40 rows each; every row of ``Y``
+   is held against each member's plain forward on the card, 16 rows at a
+   time, combined in numpy, and the launch counts must show that each
+   attention or hybrid layer ran the flash kernel and each SSM or hybrid
+   layer the scan kernel once per chunk, that the combine kernels ran, and
+   that no plain version did.  The capacity dispatch makes a row's answer
+   depend on the other row of its 512-token group and jump where a near
+   tie of the router flips between the flash kernel and the plain
+   attention, so for granite the plain forward runs on the workers' own
+   batches with the served run's expert choices replayed layer by layer;
+   a second plain run with its own choices reports the rows rerouted and
+   the router's margin where they part.  Each system is shut down and its
+   memory freed before the next pair;
 5. generation at full width, one phase per model: ``prefill`` of a random
    prompt and 64 greedy ``decode_step``s with ``use_kernel=True``, batch
    16, fp32, random weights from ``--seed``: qwen3-1.7b (1024-token prompt,
    2048 slots), hymba-1.5b (992 tokens, 2048 slots: the 1024-slot window
    ring wraps), mamba2-1.3b (512 tokens, 1024 slots) and hymba-1.5b again
-   with an int8 KV cache, teacher-forced on the fp32 run's tokens.  The
-   logits are held against the plain forward of prompt + generated tokens
-   and against the plain decode path, the int8 run's against the fp32
-   run's; the launch counts must show one decode-attention launch per
-   attention or hybrid layer per step (none with the int8 cache), one scan
-   per SSM or hybrid layer of the prefill, and no plain version.
+   with an int8 KV cache, teacher-forced on the fp32 run's tokens, then
+   granite-moe-3b-a800m (512 tokens, 1024 slots) and llama-3.2-vision-11b
+   at 10 layers (512 tokens, 1024 slots, with the frontend).  The logits are
+   held against the plain forward of prompt + generated tokens (not for
+   granite: its capacity dispatch groups the tokens of a prefill and of a
+   decode step otherwise than a full forward does) and against the plain
+   decode path, the int8 run's against the fp32 run's; the launch counts
+   must show one decode-attention launch per self-attention or hybrid
+   layer per step (none with the int8 cache; a cross-attention layer
+   decodes densely, as in the JAX package), one scan per SSM or hybrid
+   layer of the prefill, and no plain version;
+6. ``alloc:ENS4``: the paper's allocation procedure on this card for the
+   four members of ENS4: worst-fit-decreasing on ``cuda_devices()``, then
+   the bounded greedy scoring each matrix with ``MeasuredBench`` (the
+   torch system in Benchmark Mode, with its defaults: no kernels, the
+   "mean" combine) under ``MemoBench``.  It prints both matrices, their
+   rows/s, the matrices evaluated and the greedy's speedup over its start.
 
 The line before the last holds the card's name and power limit; before it,
 the per-kernel summary line.  The last line is ``{"ok": true, "device":
@@ -56,6 +77,7 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -63,6 +85,7 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -92,15 +115,22 @@ FLASH_CASES = [                # (b, s, h, kv, hd, window, dtype) — JAX suite
     (1, 70, 4, 1, 256, 16, "float32"),
     (2, 33, 2, 1, 50, 0, "float32"),        # hd 50: padded to 64, element loads
     (2, 130, 16, 8, 128, 0, "bfloat16"),
+    (16, 256, 24, 8, 64, 0, "float32"),     # serving path, granite chunks
+    (8, 256, 24, 8, 64, 0, "float32"),
+    (16, 256, 32, 8, 128, 0, "float32"),    # llama-3.2-vision's self layers
 ]
-# served class counts: qwen3 151936, mamba2 50280, hymba 32001 (rows not
-# 16-byte aligned)
+# served class counts: qwen3 151936, mamba2 50280, hymba 32001, granite
+# 49155 and llama-3.2-vision 128256 (rows of 32001 and 49155 not 16-byte
+# aligned)
 COMBINE_CASES = [(4, 128, 100), (12, 44, 91), (3, 128, 1000), (1, 7, 13),
                  (2, 32, 151936), (1, 32, 151936), (1, 8, 151936),
-                 (1, 32, 50280), (1, 8, 50280), (1, 32, 32001), (1, 8, 32001)]
+                 (1, 32, 50280), (1, 8, 50280), (1, 32, 32001), (1, 8, 32001),
+                 (1, 32, 49155), (1, 8, 49155), (1, 32, 128256),
+                 (1, 8, 128256)]
 QUANT_CASES = [(1, 8, 512), (3, 40, 512), (2, 128, 640), (1, 32, 151936),
                (1, 8, 151936), (1, 32, 50280), (1, 8, 50280), (1, 32, 32001),
-               (1, 8, 32001)]
+               (1, 8, 32001), (1, 32, 49155), (1, 8, 49155), (1, 32, 128256),
+               (1, 8, 128256)]
 SSD_CASES = [                  # (b, s, h, p, n, chunk) — JAX suite
     (2, 64, 4, 32, 16, 16),
     (1, 128, 8, 64, 32, 32),
@@ -111,6 +141,11 @@ SSD_CASES = [                  # (b, s, h, p, n, chunk) — JAX suite
     (1, 96, 2, 96, 32, 32),    # P 96: two blocks a head
     (16, 256, 64, 64, 128, 64),  # serving path, mamba2 member-0 chunk
     (16, 256, 50, 64, 16, 64),   # serving path, hymba member-0 chunk
+    # layouts over 227 KB at the caller's chunk, and a state over 256: the
+    # kernel runs at the largest chunk that fits
+    (2, 300, 4, 64, 128, 128),
+    (2, 300, 4, 64, 16, 256),
+    (2, 150, 3, 64, 512, 64),
 ]
 DECODE_CASES = [              # (b, L, h, kv, hd, dtype, valid slots)
     (2, 64, 4, 2, 32, "float32", "tail"),       # JAX suite: L-7 valid
@@ -125,13 +160,19 @@ DECODE_CASES = [              # (b, L, h, kv, hd, dtype, valid slots)
     (4, 2048, 16, 8, 128, "float32", "random"),
     (16, 2048, 16, 8, 128, "float32", "one"),
     (16, 1024, 25, 5, 64, "bfloat16", "wrap"),
+    (16, 1024, 24, 8, 64, "float32", "gen"),      # granite's last step
+    (16, 1024, 32, 8, 128, "float32", "gen"),     # llama-3.2-vision's
 ]
 MAIN_DECODE = (16, 2048, 16, 8, 128)
 MAIN_DECODE_VALID = 1088
 HYMBA_DECODE = (16, 1024, 25, 5, 64)          # the window ring, all valid
-DECODE_TIMED = ((MAIN_DECODE, "prefix"), (HYMBA_DECODE, "all"))
+GRANITE_DECODE = (16, 1024, 24, 8, 64)        # group 3, 576 slots valid
+GEN_VALID = 576                               # 512 prompt + 64 steps
+DECODE_TIMED = ((MAIN_DECODE, "prefix"), (HYMBA_DECODE, "all"),
+                (GRANITE_DECODE, "gen"))
 MAIN_FLASH = (16, 256, 16, 8, 128)
 HYMBA_FLASH = (16, 256, 25, 5, 64)
+GRANITE_FLASH = (16, 256, 24, 8, 64)
 MAIN_SEG, MAIN_C = 32, 151936
 COMBINE_SETS = 4               # (preds, partial) sets that the timed folds
                                # rotate over: 4 x 39 MB, so that no fold
@@ -360,10 +401,10 @@ def phase_flash(torch, gen, dev):
         err = close(torch, out, want, tol)
         cases.append({"shape": [b, s, h, kv, hd], "window": window,
                       "dtype": dt, "max_abs_err": err, "tol": tol})
-        if (b, s, h, kv, hd) in (MAIN_FLASH, HYMBA_FLASH):
+        if (b, s, h, kv, hd) in (MAIN_FLASH, HYMBA_FLASH, GRANITE_FLASH):
             served[(b, s, h, kv, hd)] = (qs, k, v, window, err)
     timed = []
-    for shape in (MAIN_FLASH, HYMBA_FLASH):
+    for shape in (MAIN_FLASH, HYMBA_FLASH, GRANITE_FLASH):
         qs, k, v, window, err = served[shape]
         timed.append({"shape": list(shape), "window": window,
                       "max_abs_err": err,
@@ -511,6 +552,8 @@ def decode_valid(torch, kind: str, L: int, gen, dev):
         return pos < L - 7
     if kind == "prefix":
         return pos < MAIN_DECODE_VALID
+    if kind == "gen":
+        return pos < GEN_VALID
     if kind == "leading":
         return pos >= 600
     if kind == "random":
@@ -758,11 +801,153 @@ def device_time(prof, window: float) -> dict:
                      "calls": e.count} for e in top]}
 
 
-PAIRS = [                      # (fp32 member, layers of the int8 member)
-    ("qwen3-1.7b", 14),
-    ("mamba2-1.3b", 24),
-    ("hymba-1.5b", 16),
+PAIRS = [                      # (fp32 member, its layers (None: the full
+    ("qwen3-1.7b", None, 14),  # config's), layers of the int8 member)
+    ("mamba2-1.3b", None, 24),
+    ("hymba-1.5b", None, 16),
+    ("granite-moe-3b-a800m", None, 16),
+    # 40 layers would be 43 GB in f32 beside the int8 member's f32 build
+    ("llama-3.2-vision-11b", 10, 5),
 ]
+
+
+def cut(cfg, layers):
+    """``cfg`` at ``layers`` layers (widths unchanged), or as it is."""
+    if layers is None or layers == cfg.num_layers:
+        return cfg
+    return dataclasses.replace(cfg, name=f"{cfg.name}-l{layers}",
+                               num_layers=layers)
+
+
+def frontend_for(torch, cfg, seed: int, rows: int):
+    """A cross-attention member's frontend, (rows, F, fdim) on the card:
+    one seeded row, repeated, so that a row's answer does not depend on
+    where the batcher puts it (a zero frontend would add exactly 0).  None
+    for the other members."""
+    if not cfg.frontend_tokens:
+        return None
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1000)
+    row = torch.randn((1, cfg.frontend_tokens, cfg.fdim), generator=gen,
+                      device=dev)
+    return row.expand(rows, -1, -1).contiguous()
+
+
+class RoutingLog:
+    """While open, wraps ``models.moe._router`` and keeps each router call's
+    choices ``idx`` (tokens, k) under the member that made it: the calling
+    thread's, set by ``member`` (one thread serves one member).  With
+    ``replay`` (member -> that member's calls' choices, in order) the
+    choices are the replayed ones and the weights the router's own
+    probabilities at them, renormalised: ``_router`` with its choices
+    given.  With ``margins`` each call also keeps the router's margin per
+    token, the least gap between neighbours among its k + 1 highest
+    probabilities: two forwards choose, or rank, a token's experts
+    differently only where that gap is under the difference between their
+    probabilities."""
+
+    def __init__(self, replay=None, margins: bool = False):
+        self.replay = {m: list(c) for m, c in (replay or {}).items()}
+        self.margins = margins
+        self.idx, self.margin = {}, {}
+        self._tls = threading.local()
+
+    def member(self, m: int) -> None:
+        self._tls.member = m
+        self.idx.setdefault(m, [])
+        self.margin.setdefault(m, [])
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self._orig = orig = moe._router
+
+        def router(x, w_router, top_k):
+            weights, idx, probs = orig(x, w_router, top_k)
+            m = self._tls.member
+            if m in self.replay:
+                idx = self.replay[m].pop(0)
+                if tuple(idx.shape) != (x.shape[0], top_k):
+                    fail(f"member {m}: replayed choices {tuple(idx.shape)} "
+                         f"for {x.shape[0]} tokens")
+                w = probs.gather(1, idx)
+                weights = (w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+                           ).to(x.dtype)
+            self.idx[m].append(idx)
+            if self.margins:
+                top = torch.topk(probs, top_k + 1, dim=-1).values
+                self.margin[m].append((top[:, :-1] - top[:, 1:]).min(-1)
+                                      .values)
+            return weights, idx, probs
+        moe._router = router
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._router = self._orig
+
+
+def dispatch_counts(cfg, calls) -> dict:
+    """The capacity dispatch of one member's router calls: its (token, k)
+    assignments, how many were dropped, and the group and capacity of the
+    largest call."""
+    import torch.nn.functional as F
+    from repro_torch.models.moe import capacity_plan, dispatch_slots
+    kept = total = 0
+    for idx in calls:
+        t, k = idx.shape
+        g, ng, cap = capacity_plan(cfg, t)
+        ig = F.pad(idx, (0, 0, 0, ng * g - t)).reshape(ng, g, k)
+        _, keep = dispatch_slots(ig, cfg.moe.num_experts, cap)
+        kept += int(keep.reshape(-1, k)[:t].sum())
+        total += t * k
+    g, ng, cap = capacity_plan(cfg, max(c.shape[0] for c in calls))
+    return {"group": g, "groups_per_batch": ng, "capacity": cap,
+            "assignments": total, "dropped": total - kept,
+            "dropped_share": (total - kept) / max(1, total),
+            "dispatches": len(calls)}
+
+
+def rerouting(torch, cfg, batches, served, plain, margin, row_of) -> dict:
+    """Where one member's plain forward, left to route by itself on the
+    served batches, departs from the served run's choices: the rows of X
+    whose choices differ in some layer, and for each 512-token group that
+    departs, the plain router's margin at the tokens whose choices differ
+    in the first layer where any of the group's do.  Before that layer the
+    group's tokens had the same choices, hence the same capacity slots, on
+    both paths, so their router inputs differed by rounding alone: a margin
+    of that order there is the witness that a near tie flipped."""
+    from repro_torch.models.moe import capacity_plan
+    layers = cfg.num_layers
+    rows, firsts, i = set(), [], 0
+    for tok in batches:
+        b, s = tok.shape
+        diff = (torch.stack(served[i:i + layers]) !=
+                torch.stack(plain[i:i + layers])).any(-1)      # (layers, T)
+        mg = torch.stack(margin[i:i + layers])
+        i += layers
+        keys = tok.cpu().numpy()
+        for j in torch.nonzero(diff.reshape(layers, b, s).any(-1).any(0)
+                               )[:, 0].tolist():
+            if keys[j].any():
+                rows.add(row_of[keys[j].tobytes()])
+        g, ng, _ = capacity_plan(cfg, b * s)
+        pad = ng * g - b * s
+        dg = torch.nn.functional.pad(diff, (0, pad)).reshape(layers, ng, g)
+        mg = torch.nn.functional.pad(mg, (0, pad)).reshape(layers, ng, g)
+        for q in torch.nonzero(dg.any(-1).any(0))[:, 0].tolist():
+            l = int(torch.nonzero(dg[:, q].any(-1))[0, 0])
+            firsts.append({"layer": l, "tokens": int(dg[l, q].sum()),
+                           "margin_max": float(mg[l, q][dg[l, q]].max())})
+    every = torch.cat([m.flatten() for m in margin])
+    firsts.sort(key=lambda f: -f["margin_max"])
+    return {"rows": sorted(rows), "groups_departed": len(firsts),
+            "first_departures_widest": firsts[:10],
+            "margin_at_first_departure_max": max(
+                (f["margin_max"] for f in firsts), default=None),
+            "margin_median": float(every.median()),
+            "margin_min": float(every.min())}
 
 
 def layer_counts(cfg):
@@ -773,26 +958,101 @@ def layer_counts(cfg):
     return attn, scan
 
 
-def phase_pair(torch, name: str, int8_layers: int, seed: int, smi: str,
-               profile: bool = False):
-    """Serve one member pair end to end: ``name`` at its full configuration
-    in fp32, and the same widths cut to ``int8_layers`` layers in int8."""
+def record_batches(worker, log: list, routing=None):
+    """Wrap ``worker``'s forward so that each batch's tokens are kept in
+    ``log`` (device copies, in the order served) and the router calls it
+    makes are kept by ``routing`` (a ``RoutingLog``) under its member;
+    returns the forward it wrapped."""
+    orig = worker.predict_fn
+
+    def predict(params, tokens, frontend=None):
+        log.append(tokens.clone())
+        if routing is not None:
+            routing.member(worker.model_idx)
+        return orig(params, tokens, frontend)
+    worker.predict_fn = predict
+    return orig
+
+
+def combined_reference(torch, kq, cfgs, workers, fe, X, batches,
+                       use_kernel: bool, routing=None):
+    """Each member's forward on the worker's own parameters over
+    ``batches[m]`` (token tensors whose rows are rows of ``X``, zero rows
+    being padding), the int8 member's logits quantized per row as the
+    server does: returns each member's logits for the rows of ``X``, in
+    order, and the int8 member's row scales.  ``routing`` (an open
+    ``RoutingLog``) is told which member runs."""
+    from repro_torch.models.transformer import hidden, logits_from_hidden
+    logits, scales = [], None
+    for i, (cfg, w) in enumerate(zip(cfgs, workers)):
+        if routing is not None:
+            routing.member(i)
+        rows = {}
+        for tok in batches[i]:
+            n = tok.shape[0]
+            x = hidden(w.params, cfg, tok, None if fe is None else fe[:n],
+                       use_kernel=use_kernel)
+            lg = logits_from_hidden(w.params, cfg, x[:, -1])
+            lg = lg[:, :cfg.vocab_size].float()
+            for j, key in enumerate(tok.cpu().numpy()):
+                if key.any():
+                    rows[key.tobytes()] = lg[j]
+        lg = torch.stack([rows[r.tobytes()] for r in X])
+        if i == 1:
+            q, s = kq.quantize_symmetric(lg, axis=-1)
+            lg = kq.dequantize(q, s)
+            scales = s[:, 0].cpu().numpy()
+        logits.append(lg.cpu().numpy())
+    return logits, scales
+
+
+def held_to(Y, ref_logits, scales, weights) -> dict:
+    """How ``Y`` stands against the combined reference.  A logit of the
+    int8 member on a rounding edge may flip its code by one between the two
+    paths, which moves that element of Y by exactly one step, w1*s_row.  So
+    every element must lie within atol of Y_ref + k*step with k in {-1, 0,
+    1}, and at most MAX_FLIP_SHARE of them with k != 0: any other fault (a
+    wrong weight, a lower-precision forward) leaves errors that are not
+    whole steps."""
+    import numpy as np
+    Y_ref = weights[0] * ref_logits[0] + weights[1] * ref_logits[1]
+    atol = 1e-4 * max(1.0, float(np.abs(Y_ref).max()))
+    diff = Y - Y_ref
+    step = (weights[1] * scales)[:, None]
+    k = np.rint(diff / step)
+    resid = np.abs(diff - k * step)
+    bad = (resid > atol) | (np.abs(k) > 1)
+    off = bad.any(axis=1)
+    rows_off = np.nonzero(off)[0]
+    return {"max_abs_err": float(np.abs(diff).max()), "atol": atol,
+            "max_residual": float(resid.max()),
+            "int8_step_max": float(step.max()),
+            # code flips in the rows that hold
+            "int8_flips": int((k[~off] != 0).sum()),
+            "bad_elements": int(bad.sum()), "rows_off": rows_off.tolist(),
+            "row_residual": resid.max(axis=1)[rows_off].tolist()}
+
+
+def phase_pair(torch, name: str, layers, int8_layers: int, seed: int,
+               smi: str, profile: bool = False):
+    """Serve one member pair end to end: ``name`` at its full widths in
+    fp32 (``layers`` of them, or the full config's), and the same widths cut
+    to ``int8_layers`` layers in int8."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import AllocationMatrix, cuda_devices
     from repro_torch.kernels import ops
     from repro_torch.kernels import quant as kq
     from repro_torch.models import init_params
-    from repro_torch.models.transformer import hidden, logits_from_hidden
     from repro_torch.serving import InferenceSystem
 
     dev = torch.device("cuda", 0)
     torch.cuda.reset_peak_memory_stats(dev)
-    cfg0 = get_config(name)
-    cfg1 = dataclasses.replace(cfg0, name=f"{name}-l{int8_layers}",
-                               num_layers=int8_layers)
+    cfg0 = cut(get_config(name), layers)
+    cfg1 = cut(get_config(name), int8_layers)
     cfgs = [cfg0, cfg1]
     batches = [16, 8]
+    fe = frontend_for(torch, cfg0, seed, max(batches))
     t0 = time.perf_counter()
     params = [init_params(cfg0, seed, dev), init_params(cfg1, seed + 1, dev)]
     torch.cuda.synchronize()
@@ -804,7 +1064,9 @@ def phase_pair(torch, name: str, int8_layers: int, seed: int, smi: str,
     system = InferenceSystem(cfgs, params, alloc, combine="pallas",
                              use_kernel=True, max_seq=max_seq,
                              segment_size=seg,
-                             member_dtypes=["fp32", "int8"])
+                             member_dtypes=["fp32", "int8"],
+                             frontends=None if fe is None else {
+                                 i: fe[:b] for i, b in enumerate(batches)})
     del params
     t_build = time.perf_counter() - t0
     try:
@@ -812,11 +1074,21 @@ def phase_pair(torch, name: str, int8_layers: int, seed: int, smi: str,
         rng = np.random.default_rng(seed)
         X = rng.integers(0, cfg0.vocab_size, (n_req * rows, max_seq)
                          ).astype(np.int32)
+        # a capacity-MoE pair keeps each worker's batches and the router's
+        # choices in them, for a reference on the same batches and choices
+        own_batches = cfg0.moe is not None and cfg0.moe.impl == "capacity"
+        served = [[] for _ in cfgs]
+        served_log = RoutingLog() if own_batches else None
+        unwrapped = [(w, record_batches(w, served[w.model_idx], served_log))
+                     for w in system.workers] if own_batches else []
         torch.cuda.synchronize()
         ops.reset_counts()                   # counts cover the served run
-        Y, wall, lat_ms = serve(system, X, n_req, rows)
+        with served_log or contextlib.nullcontext():
+            Y, wall, lat_ms = serve(system, X, n_req, rows)
         launches = ops.kernel_launches()
         plain = ops.plain_calls()
+        for w, fn in unwrapped:
+            w.predict_fn = fn
         counters = system.serving_counters()
         stages = {k: v["total_s"] for k, v in system.stage_timings().items()}
         if profile:
@@ -826,54 +1098,64 @@ def phase_pair(torch, name: str, int8_layers: int, seed: int, smi: str,
         # plain reference on the card: each member's plain forward on the
         # worker's own parameters (the int8 member's wrapped tree, the same
         # dequantized weights), int8 logit quantization for member 1
-        ref_logits, scales = [], None
         with torch.no_grad():
             tok = torch.from_numpy(X).to(dev)
-            for i, (cfg, w) in enumerate(zip(cfgs, workers)):
-                parts = []
-                for lo in range(0, len(X), 16):
-                    x = hidden(w.params, cfg, tok[lo:lo + 16],
-                               use_kernel=False)
-                    lg = logits_from_hidden(w.params, cfg, x[:, -1])
-                    parts.append(lg[:, :cfg.vocab_size].float())
-                lg = torch.cat(parts)
-                if i == 1:
-                    q, s = kq.quantize_symmetric(lg, axis=-1)
-                    lg = kq.dequantize(q, s)
-                    scales = s[:, 0].cpu().numpy()
-                ref_logits.append(lg.cpu().numpy())
+            blocks = [tok[lo:lo + 16] for lo in range(0, len(X), 16)]
+            if own_batches:
+                # the capacity dispatch sends each token to its top-k
+                # experts and drops what is past an expert's capacity, so a
+                # row's answer jumps where a choice flips; the plain path
+                # therefore replays the served run's choices, layer by layer
+                # on the same batches, and every row is held to it.  Its own
+                # choices, in a second plain run, show where and by what
+                # margin the two paths part
+                replay_log = RoutingLog(replay=served_log.idx)
+                with replay_log:
+                    plain_ref = combined_reference(
+                        torch, kq, cfgs, workers, fe, X, served,
+                        use_kernel=False, routing=replay_log)
+                left = {m: len(c) for m, c in replay_log.replay.items() if c}
+                if left:
+                    fail(f"{name}: served router calls not replayed: {left}")
+                own_log = RoutingLog(margins=True)
+                with own_log:
+                    own_ref = combined_reference(
+                        torch, kq, cfgs, workers, fe, X, served,
+                        use_kernel=False, routing=own_log)
+                row_of = {r.tobytes(): i for i, r in enumerate(X)}
+                departed = [rerouting(torch, c, served[m], served_log.idx[m],
+                                      own_log.idx[m], own_log.margin[m],
+                                      row_of) for m, c in enumerate(cfgs)]
+                moe_counts = [dispatch_counts(c, served_log.idx[m])
+                              for m, c in enumerate(cfgs)]
+                del replay_log, own_log, served_log
+            else:
+                plain_ref = combined_reference(
+                    torch, kq, cfgs, workers, fe, X, [blocks, blocks],
+                    use_kernel=False)
     finally:
         system.shutdown()
     # free this pair's device memory before the next one is built
-    del system, workers, w, tok, parts, lg, x
+    del system, workers, tok, blocks, fe, served
     gc.collect()
     torch.cuda.empty_cache()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    Y_ref = weights[0] * ref_logits[0] + weights[1] * ref_logits[1]
     if Y.shape != (n_req * rows, cfg0.vocab_size):
         fail(f"{name}: Y shape {Y.shape}")
     if not np.isfinite(Y).all():
         fail(f"{name}: non-finite Y")
-    atol = 1e-4 * max(1.0, float(np.abs(Y_ref).max()))
-    # A logit of the int8 member on a rounding edge may flip its code by one
-    # between the two paths, which moves that element of Y by exactly one
-    # step, w1*s_row.  So every element must lie within atol of Y_ref + k*step
-    # with k in {-1, 0, 1}, and at most MAX_FLIP_SHARE of them with k != 0:
-    # any other fault (a wrong weight, a lower-precision forward) leaves
-    # errors that are not whole steps.
-    diff = Y - Y_ref
-    step = (weights[1] * scales)[:, None]
-    k = np.rint(diff / step)
-    resid = np.abs(diff - k * step)
-    flips = int((k != 0).sum())
-    bad = (resid > atol) | (np.abs(k) > 1)
-    if bad.any():
-        fail(f"{name}: Y vs plain reference: {int(bad.sum())} elements off "
-             f"by more than atol {atol:.3g} from a whole int8 step, max "
-             f"residual {resid.max():.3g}")
-    if flips > MAX_FLIP_SHARE * Y.size:
-        fail(f"{name}: Y vs plain reference: {flips} int8 code flips, over "
-             f"{MAX_FLIP_SHARE:.0%} of {Y.size} elements")
+    gate = "plain_served_routing" if own_batches else "plain"
+    checks = {gate: held_to(Y, *plain_ref, weights)}
+    for what, c in checks.items():
+        if c["rows_off"]:
+            fail(f"{name}: Y vs {what} reference: {c['bad_elements']} "
+                 f"elements in rows {c['rows_off'][:20]} off by more than "
+                 f"atol {c['atol']:.3g} from a whole int8 step, max residual "
+                 f"{c['max_residual']:.3g}, per row {c['row_residual'][:20]}")
+        if c["int8_flips"] > MAX_FLIP_SHARE * Y.size:
+            fail(f"{name}: Y vs {what} reference: {c['int8_flips']} int8 "
+                 f"code flips, over {MAX_FLIP_SHARE:.0%} of {Y.size} "
+                 f"elements")
     if any(plain.values()):
         fail(f"{name}: plain versions ran on the served path: {plain}")
     # every dispatched chunk runs its member's forward once: one flash launch
@@ -891,7 +1173,34 @@ def phase_pair(torch, name: str, int8_layers: int, seed: int, smi: str,
     for kname in ("ensemble_combine", "ensemble_combine_quant"):
         if launches[kname] < 1:
             fail(f"{name}: {kname} never launched on the served path")
-    emit({"phase": f"end_to_end:{name}", "ok": True, "card": smi,
+    extra = {}
+    if own_batches:
+        own = held_to(Y, *own_ref, weights)
+        rows_rerouted = sorted(set().union(*(d["rows"] for d in departed)))
+        extra["moe"] = {
+            "impl": cfg0.moe.impl, **moe_counts[0],
+            "dropped_share_int8_member": moe_counts[1]["dropped_share"],
+            "note": "counted in the served run's dispatch, member 0"}
+        extra["rerouting"] = {
+            "note": "the plain path on the served batches with its own "
+                    "choices: the rows whose choices differ from the served "
+                    "run's in some layer of either member, how far Y is "
+                    "from that reference, and the plain router's margin "
+                    "where each group first departs",
+            "rows_rerouted": rows_rerouted,
+            "rerouted_share": len(rows_rerouted) / len(X),
+            "rows_off_own_routing": own["rows_off"],
+            "max_abs_err_own_routing": own["max_abs_err"],
+            "members": [{k: v for k, v in d.items() if k != "rows"}
+                        for d in departed]}
+    if cfg0.frontend_tokens:
+        extra["frontend"] = {"shape": [max(batches), cfg0.frontend_tokens,
+                                       cfg0.fdim],
+                             "rows": "one seeded row, repeated"}
+    if layers is not None:
+        extra["depth_cut"] = {"layers": cfg0.num_layers,
+                              "full_config_layers": get_config(name).num_layers}
+    emit({"phase": f"end_to_end:{name}", "ok": True, "card": smi, **extra,
           "members": [c.name for c in cfgs], "member_dtypes": ["fp32", "int8"],
           "allocation": [batches], "requests": n_req, "rows_per_request": rows,
           "max_seq": max_seq, "segment_size": seg,
@@ -900,27 +1209,31 @@ def phase_pair(torch, name: str, int8_layers: int, seed: int, smi: str,
           "p99_ms": float(np.percentile(lat_ms, 99)),
           "member_param_gb": [b / 1e9 for b in member_bytes],
           "peak_device_gb": peak_gb, "init_s": t_init, "system_build_s": t_build,
-          "max_abs_err": float(np.abs(diff).max()), "atol": atol,
-          "max_residual": float(resid.max()), "int8_step_max": float(
-              step.max()), "int8_flips": flips, "elements": int(Y.size),
+          "max_abs_err": checks[gate]["max_abs_err"],
+          "atol": checks[gate]["atol"], "gate": gate,
+          "checks": {k: {f: v for f, v in c.items() if f != "row_residual"}
+                     for k, c in checks.items()},
+          "elements": int(Y.size),
           "launches": launches, "launch_minima": minima, "plain_calls": plain,
           "batches": counters.get("batches"), "stage_total_s": stages,
           "padding_efficiency": counters.get("padding_efficiency")})
     return launches
 
 
-GEN_PHASES = [                 # (model, prompt, cache slots, int8 KV cache)
-    ("qwen3-1.7b", 1024, 2048, False),
-    ("hymba-1.5b", 992, 2048, False),
-    ("mamba2-1.3b", 512, 1024, False),
-    ("hymba-1.5b", 992, 2048, True),
+GEN_PHASES = [                 # (model, layers (None: the full config's),
+    ("qwen3-1.7b", None, 1024, 2048, False),   # prompt, cache slots, int8
+    ("hymba-1.5b", None, 992, 2048, False),    # KV cache)
+    ("mamba2-1.3b", None, 512, 1024, False),
+    ("hymba-1.5b", None, 992, 2048, True),
+    ("granite-moe-3b-a800m", None, 512, 1024, False),
+    ("llama-3.2-vision-11b", 10, 512, 1024, False),
 ]
 GEN_BATCH, GEN_STEPS = 16, 64
 PROFILE_STEPS = 8
 
 
 def generate(torch, params, cfg, prompt, max_len: int, *, use_kernel: bool,
-             int8_kv: bool = False, forced=None) -> dict:
+             int8_kv: bool = False, forced=None, frontend=None) -> dict:
     """prefill + GEN_STEPS decode steps, greedy over the real vocabulary
     unless ``forced`` (B, GEN_STEPS) gives the tokens.  Returns the logits
     of the prefill and of every step (GEN_STEPS + 1, B, V), the tokens fed,
@@ -931,7 +1244,7 @@ def generate(torch, params, cfg, prompt, max_len: int, *, use_kernel: bool,
     with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lg, cache = prefill(params, cfg, prompt, max_len,
+        lg, cache = prefill(params, cfg, prompt, max_len, frontend,
                             use_kernel=use_kernel, quantize_cache=int8_kv)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
@@ -980,13 +1293,14 @@ def max_err(torch, got, want):
             max(1.0, want.float().abs().max().item()))
 
 
-def phase_generate(torch, name: str, prompt_len: int, max_len: int,
+def phase_generate(torch, name: str, layers, prompt_len: int, max_len: int,
                    int8_kv: bool, seed: int, smi: str, profile: bool = False,
                    fp32_run=None):
-    """Generate with ``name`` at its full configuration (see the module
-    docstring).  ``fp32_run`` (tokens, logits) of the same model is what an
-    int8-KV run is teacher-forced on and held to.  Returns (launches, the
-    run's tokens and logits on the host)."""
+    """Generate with ``name`` at its full widths and ``layers`` layers (or
+    the full config's; see the module docstring).  ``fp32_run`` (tokens,
+    logits) of the same model is what an int8-KV run is teacher-forced on
+    and held to.  Returns (launches, the run's tokens and logits on the
+    host)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import init_params
@@ -995,19 +1309,20 @@ def phase_generate(torch, name: str, prompt_len: int, max_len: int,
     import numpy as np
     label = name + (":int8-kv" if int8_kv else "")
     dev = torch.device("cuda", 0)
-    cfg = get_config(name)
+    cfg = cut(get_config(name), layers)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     prompt = torch.randint(0, cfg.vocab_size, (GEN_BATCH, prompt_len),
                            generator=gen, device=dev, dtype=torch.int32)
     params = init_params(cfg, seed, dev)
+    fe = frontend_for(torch, cfg, seed, GEN_BATCH)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     forced = None if fp32_run is None else fp32_run[0].to(dev)
 
     ops.reset_counts()                    # counts cover the kernel run
     run = generate(torch, params, cfg, prompt, max_len, use_kernel=True,
-                   int8_kv=int8_kv, forced=forced)
+                   int8_kv=int8_kv, forced=forced, frontend=fe)
     launches, plain = ops.kernel_launches(), ops.plain_calls()
     cache = run.pop("cache")
     cache_gb = tree_bytes(cache) / 1e9
@@ -1027,12 +1342,13 @@ def phase_generate(torch, name: str, prompt_len: int, max_len: int,
         fail(f"{label}: non-finite logits")
 
     errors = {}
-    if fp32_run is None:
+    capacity_moe = cfg.moe is not None and cfg.moe.impl == "capacity"
+    if fp32_run is None and not capacity_moe:
         # the plain forward of prompt + generated tokens, at the positions
         # whose logits the run produced
         with torch.no_grad():
             seq = torch.cat([prompt, tokens], 1)
-            x = hidden(params, cfg, seq, use_kernel=False)
+            x = hidden(params, cfg, seq, fe, use_kernel=False)
             x = x[:, prompt_len - 1:prompt_len + GEN_STEPS]
             want = logits_from_hidden(params, cfg, x)[..., :cfg.vocab_size]
             want = want.transpose(0, 1)
@@ -1040,9 +1356,11 @@ def phase_generate(torch, name: str, prompt_len: int, max_len: int,
         err, scale = max_err(torch, logits, want)
         errors["plain_forward"] = {"max_abs_err": err, "tol": 1e-3 * scale}
         del want
+    if fp32_run is None:
         # the plain decode path on the same tokens, from a fresh prefill
+        # (the same grouping of tokens as the kernel run's)
         plain_run = generate(torch, params, cfg, prompt, max_len,
-                             use_kernel=False, forced=tokens)
+                             use_kernel=False, forced=tokens, frontend=fe)
         del plain_run["cache"]
         err, scale = max_err(torch, logits, plain_run["logits"])
         errors["plain_decode"] = {"max_abs_err": err, "tol": 1e-4 * scale}
@@ -1054,7 +1372,7 @@ def phase_generate(torch, name: str, prompt_len: int, max_len: int,
         plain_steps = None
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     host = (tokens.cpu(), logits.cpu())
-    del params, logits, prompt, forced
+    del params, logits, prompt, forced, fe
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1074,6 +1392,10 @@ def phase_generate(torch, name: str, prompt_len: int, max_len: int,
         fail(f"{label}: the cache's k/v are {kv_dtypes} at the end, not int8")
     steps = np.array(run["step_ms"])
     out = {"phase": f"generate:{label}", "ok": True, "card": smi,
+           "layers": cfg.num_layers,
+           "full_config_layers": get_config(name).num_layers,
+           "frontend": None if cfg.frontend_tokens == 0 else [
+               GEN_BATCH, cfg.frontend_tokens, cfg.fdim],
            "batch": GEN_BATCH, "prompt": prompt_len, "max_len": max_len,
            "steps": GEN_STEPS, "use_kernel": True, "int8_kv": int8_kv,
            "prefill_s": run["prefill_s"],
@@ -1088,6 +1410,68 @@ def phase_generate(torch, name: str, prompt_len: int, max_len: int,
         out["plain_decode_ms_p50"] = float(np.percentile(plain_steps, 50))
     emit(out)
     return launches, host
+
+
+ALLOC_ROWS, ALLOC_SEQ = 256, 128     # calibration rows of the bench
+ALLOC_MAX_ITER, ALLOC_MAX_NEIGHS = 2, 6
+
+
+def phase_alloc(torch, seed: int, smi: str) -> dict:
+    """The paper's allocation procedure for ENS4 on this card (see the
+    module docstring).  Returns the kernel launches of its benchmark runs."""
+    import numpy as np
+    from repro_torch.configs import ensemble
+    from repro_torch.core import (AllocationOptimizer, MeasuredBench,
+                                  cuda_devices)
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+
+    dev = torch.device("cuda", 0)
+    cfgs = ensemble("ENS4")
+    params = [init_params(c, seed + i, dev) for i, c in enumerate(cfgs)]
+    X = np.random.default_rng(seed).integers(
+        0, cfgs[0].vocab_size, (ALLOC_ROWS, ALLOC_SEQ)).astype(np.int32)
+    bench = MeasuredBench(cfgs, params, X)
+    opt = AllocationOptimizer(cfgs, cuda_devices()[:1], bench,
+                              max_iter=ALLOC_MAX_ITER,
+                              max_neighs=ALLOC_MAX_NEIGHS, seq=ALLOC_SEQ,
+                              seed=seed)
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    res = opt.optimize()
+    wall = time.perf_counter() - t0
+    launches, plain = ops.kernel_launches(), ops.plain_calls()
+    benchmarked, hits = bench.calls, opt.bench.hits
+    del params, bench, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (res.wfd_score > 0 and res.final_score > 0):
+        fail(f"alloc:ENS4: a score is not positive: WFD {res.wfd_score}, "
+             f"greedy {res.final_score}")
+    if res.final_score < res.wfd_score:
+        fail("alloc:ENS4: the greedy returned a matrix slower than its start")
+    if res.trace.scores != sorted(res.trace.scores):
+        fail(f"alloc:ENS4: the greedy's scores are not monotone: "
+             f"{res.trace.scores}")
+    emit({"phase": "alloc:ENS4", "ok": True, "card": smi,
+          "members": [c.name for c in cfgs],
+          "devices": [d.name for d in res.matrix.devices],
+          "bench": "MeasuredBench (Benchmark Mode of the default system: "
+                   "use_kernel=False, combine='mean') under MemoBench",
+          "calib_rows": ALLOC_ROWS, "seq": ALLOC_SEQ,
+          "max_iter": ALLOC_MAX_ITER, "max_neighs": ALLOC_MAX_NEIGHS,
+          "wfd_matrix": res.wfd_matrix.A.tolist(),
+          "wfd_rows_per_s": res.wfd_score,
+          "greedy_matrix": res.matrix.A.tolist(),
+          "greedy_rows_per_s": res.final_score,
+          "greedy_speedup": res.final_score / res.wfd_score,
+          "score_trace": res.trace.scores,
+          "iterations": res.trace.iterations,
+          "matrices_scored": res.trace.evaluated,
+          "matrices_benchmarked": benchmarked, "memo_hits": hits,
+          "wall_s": wall,
+          "launches": launches, "plain_calls": plain})
+    return launches
 
 
 def main(argv=None) -> int:
@@ -1139,22 +1523,26 @@ def main(argv=None) -> int:
     # 4. end to end, one member pair at a time; the launches of the main
     # paths are summed over the pairs' served runs and the generation runs
     launches = {}
-    for name, int8_layers in PAIRS:
-        got = phase_pair(torch, name, int8_layers, args.seed, smi,
+    for name, layers, int8_layers in PAIRS:
+        got = phase_pair(torch, name, layers, int8_layers, args.seed, smi,
                          args.profile)
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
 
     # 5. generation, one model at a time; its launches join the sums
     fp32_runs = {}
-    for name, prompt_len, max_len, int8_kv in GEN_PHASES:
-        got, host = phase_generate(torch, name, prompt_len, max_len, int8_kv,
-                                   args.seed, smi, args.profile,
+    for name, layers, prompt_len, max_len, int8_kv in GEN_PHASES:
+        got, host = phase_generate(torch, name, layers, prompt_len, max_len,
+                                   int8_kv, args.seed, smi, args.profile,
                                    fp32_runs.get(name) if int8_kv else None)
         if not int8_kv:
             fp32_runs[name] = host
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
+
+    # 6. the allocator, Benchmark Mode on this card
+    for k, v in phase_alloc(torch, args.seed, smi).items():
+        launches[k] = launches.get(k, 0) + v
     for k in kernels:
         k["launches"] = launches[k["name"]]
     emit({"kernels": kernels})

@@ -16,7 +16,7 @@
 //
 // Two routes, by the state's size N:
 //
-// Tensor cores (N >= 32; mamba2).  The products run in TF32 (mma.sync
+// Tensor cores (32 <= N <= 256; mamba2).  The products run in TF32 (mma.sync
 // m16n8k8) with the 3xTF32 split of tf32_mma.cuh, which keeps the f32
 // tolerance; one TF32 pass would not (chip_smoke.py, kernel:ssd_scan,
 // err_vs_f64).
@@ -75,7 +75,14 @@
 // CUDA cores (N < 32; hymba's N 16).  The earlier design, kept where it
 // is faster: at N 16 the three TF32 passes cost more than the f32 products
 // they replace (PERF.md: tools/ssd_variants.py, the tensor-core route
-// forced at hymba's shape).  See ssd_core_kernel.
+// forced at hymba's shape).  It also takes N > 256, where a warp's strip
+// of the state would not fit its registers, up to the N at which the P x N
+// state and one set of tiles fit 227 KB at L = 4 (760 at P 64; ssd_scan.py,
+// plan).  See ssd_core_kernel.
+//
+// The chunk L is the kernel's own: the scan's result does not depend on it
+// beyond rounding, so where a plan at the caller's chunk does not fit 227 KB
+// the wrapper (ssd_scan.py, plan) passes the largest chunk that fits.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -107,7 +114,8 @@ inline int pad_to(int x, int r, int m) { return x + ((r - x) % m + m) % m; }
 // Shared-memory layout of both kernels (mirrored by ssd_scan.plan in the
 // wrapper, which tests it).  Lengths in floats.
 struct Plan {
-  int tc;                     // the tensor-core route (N >= 32), or CUDA cores
+  int tc;                     // the tensor-core route (32 <= N <= 256), or
+                              // CUDA cores
   int warps, pb, groups;      // warps and p columns a block; blocks a head
   int lr, ldx, ldn, lds;      // chunk rows padded to 8; row strides
   int stage, stages;          // floats of a stage (x, B, C, S, dt, cs); stages
@@ -124,7 +132,7 @@ Plan make_plan(int P, int N, int L) {
   p.groups = (P + p.pb - 1) / p.pb;
   p.lr = round_up(L, 8);
   const int n8 = round_up(N, 8);
-  p.tc = N >= 32;
+  p.tc = N >= 32 && N <= kMaxState;
   p.ldx = pad_to(p.pb, 8, 16);
   p.ldn = pad_to(n8, 8, 16);
   p.lds = pad_to(p.lr, 4, 8);
@@ -285,12 +293,15 @@ __device__ __forceinline__ void outer_tile(float (&acc)[4][4], const float4& a,
   }
 }
 
-// The CUDA-core route (the earlier kernel, for a state of N < 32): one block of
-// 256 threads per (batch, head) loops over its chunks with the P x N state
-// in shared memory (transposed, hT[n][p]); each chunk's tiles are loaded by
+// The CUDA-core route (the earlier kernel, for a state of N < 32, and of
+// N > 256, past the tensor-core route's register strips): one block of 256
+// threads per (batch, head) loops over its chunks with the P x N state in
+// shared memory (transposed, hT[n][p]); each chunk's tiles are loaded by
 // __ldg (zero past S); three phases of 4x4 register tiles in f32: (A) the
 // gated scores C.B^T * exp(cs_i - cs_j), exp only where i >= j; (B) y =
 // intra + inter; (C) the state update.  Shared rows padded by 4 floats.
+// Nothing here depends on N beyond the loop bounds: no register array has N
+// in it.
 // x, y: (B,S,H,P); dt: (B,S,H); A: (H,); bm, cm: (B,S,N); all f32.
 // P, N and L are multiples of 4.  Grid (H, B).
 __global__ void __launch_bounds__(kCoreThreads)
@@ -771,14 +782,13 @@ inline bool aligned16(const void* p) {
 // x (B,S,H,P), dt (B,S,H), A (H,), bm/cm (B,S,N), y (B,S,H,P); scores:
 // scratch of B * ceil(S/L) * L * (L + H) floats (null on the CUDA-core
 // route).
-// f32.  P, N and L multiples of 4, N at most 256, and the plan's shared
-// memory within 227 KB.
+// f32.  P, N and L multiples of 4, and a plan whose shared memory fits
+// 227 KB.
 extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* A,
                               const void* bm, const void* cm, void* scores,
                               void* y, int B, int S, int H, int P, int N,
                               int L, void* stream) {
-  if (P <= 0 || N <= 0 || L <= 0 || P % 4 || N % 4 || L % 4 ||
-      N > kMaxState)
+  if (P <= 0 || N <= 0 || L <= 0 || P % 4 || N % 4 || L % 4)
     return (int)cudaErrorInvalidValue;
   const Plan pl = make_plan(P, N, L);
   if (pl.stages == 0 || pl.smem_scores > kMaxSmem)

@@ -157,3 +157,15 @@ def leaf(node, index: Optional[int] = None) -> torch.Tensor:
     if _is_wrapped(node):
         return _unwrap(node, torch.float32, index)
     return node if index is None else node[index]
+
+
+def quantized_param_bytes(params: Any, dtype: str = "int8") -> int:
+    """Bytes the wrapped tree occupies on device (q + scales + fp32 rest)."""
+    total = [0]
+
+    def add(t):
+        total[0] += t.numel() * t.element_size()
+        return t
+
+    tree_map(add, quantize_params(params, dtype))
+    return total[0]

@@ -1,5 +1,5 @@
-"""GQA self-attention (qk-norm, RoPE, sliding window) and cached decode
-attention.
+"""GQA self-attention (qk-norm, RoPE, sliding window), cross-attention and
+cached decode attention.
 
 Three execution paths for the full sequence, as in the JAX package:
   * ``use_kernel``: the flash-attention kernel through ``kernels.ops`` (the
@@ -9,8 +9,10 @@ Three execution paths for the full sequence, as in the JAX package:
     live memory.
 One token against a cache (:func:`decode_attention`) takes the
 decode-attention kernel through ``kernels.ops`` when ``use_kernel`` and the
-cache is not int8, else the plain masked softmax.  Cross-attention is not
-ported yet (ROADMAP Queue 1 item 13).
+cache is not int8, else the plain masked softmax.  Cross-attention
+(:func:`cross_attention`) attends to frontend embeddings with no mask and no
+RoPE, by the plain einsum up to ``_DENSE_MAX`` positions and the chunked loop
+above; the JAX package runs no kernel there either.
 """
 from __future__ import annotations
 
@@ -27,11 +29,13 @@ _CHUNK = 512          # KV chunk for the online-softmax loop
 _DENSE_MAX = 2048     # sequences up to this use the plain masked einsum
 
 
-def project_qkv(cfg: ModelConfig, p, x):
-    """x: (B,S,D) -> q (B,S,H,hd), k/v (B,S,KV,hd)."""
+def project_qkv(cfg: ModelConfig, p, x, kv_src=None):
+    """x: (B,S,D) -> q (B,S,H,hd), k/v (B,Skv,KV,hd) projected from
+    ``kv_src`` (default x)."""
+    kv_src = x if kv_src is None else kv_src
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    k = torch.einsum("bsd,dhk->bshk", kv_src, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", kv_src, p["wv"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -119,6 +123,23 @@ def self_attention(cfg: ModelConfig, p, x, positions, *, window: int = 0,
         out = chunked_attention(q, k, v, positions, positions, causal=True,
                                 window=window)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def cross_attention(cfg: ModelConfig, p, x, frontend) -> torch.Tensor:
+    """x: (B,S,D) attends to frontend embeddings (B,F,fdim).  No mask, no
+    RoPE."""
+    q, k, v = project_qkv(cfg, p, x, kv_src=frontend)
+    return torch.einsum("bshk,hkd->bsd", attend_all(q, k, v), p["wo"])
+
+
+def attend_all(q, k, v) -> torch.Tensor:
+    """q (B,Sq,H,hd) against every key of k/v (B,Sk,KV,hd), no mask: the
+    plain einsum up to ``_DENSE_MAX`` positions, the chunked loop above."""
+    qp = torch.arange(q.shape[1], device=q.device)
+    kp = torch.arange(k.shape[1], device=q.device)
+    if max(q.shape[1], k.shape[1]) <= _DENSE_MAX:
+        return dense_attention(q, k, v, qp, kp, causal=False)
+    return chunked_attention(q, k, v, qp, kp, causal=False)
 
 
 def masked_decode(q, k, v, valid, *, scale: Optional[float] = None

@@ -49,8 +49,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
                *, quantized: bool = False, device="cuda"):
     """Zero-initialised cache tree on ``device`` (the card unless the caller
     asks for the CPU)."""
-    from repro_torch.models.transformer import check_supported
-    check_supported(cfg)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("init_cache: no CUDA device is available "

@@ -8,51 +8,38 @@ Python loop over repeats.  A parameter leaf may be wrapped by
 dequantizes one layer's matrices just before that layer runs, so a quantized
 member keeps only its narrow tree on the device.
 
-The port serves ``ATTN``, ``SWA``, ``SSM`` (Mamba2 mixer, no MLP when
-``d_ff == 0``) and ``HYBRID`` (attention and the SSM mixer in parallel,
-averaged) layers with a dense SwiGLU MLP, for the full-sequence forward and
-for generation (``prefill`` then ``decode_step``).  Cross-attention and MoE
-layers raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+Every layer kind of the JAX package is served: ``ATTN``, ``SWA``,
+``CROSS`` (cross-attention to frontend embeddings ``(B, F, fdim)``, which
+``forward``, ``hidden`` and ``prefill`` take as ``frontend``), ``SSM``
+(Mamba2 mixer, no MLP when ``d_ff == 0``) and ``HYBRID`` (attention and the
+SSM mixer in parallel, averaged), each followed by a dense SwiGLU MLP or a
+MoE layer (``models.moe``), for the full-sequence forward and for generation
+(``prefill`` then ``decode_step``).
 
 Public API:
-    param_shapes(cfg)                              -> tree of shapes
-    init_params(cfg, seed, device="cuda")          -> parameter tree
-    forward(params, cfg, tokens, use_kernel=...)   -> (logits, aux_loss)
-    hidden(params, cfg, tokens, use_kernel=...)    -> last hidden states
-    logits_from_hidden(params, cfg, x)             -> logits
-    prefill(params, cfg, tokens, max_len, ...)     -> (logits, cache)
-    decode_step(params, cfg, cache, token, pos)    -> (logits, cache)
+    param_shapes(cfg)                                    -> tree of shapes
+    init_params(cfg, seed, device="cuda")                -> parameter tree
+    forward(params, cfg, tokens, frontend, use_kernel=)  -> (logits, aux_loss)
+    hidden(params, cfg, tokens, frontend, use_kernel=)   -> last hidden states
+    logits_from_hidden(params, cfg, x)                   -> logits
+    prefill(params, cfg, tokens, max_len, frontend, ...) -> (logits, cache)
+    decode_step(params, cfg, cache, token, pos)          -> (logits, cache)
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ATTN, CROSS, HYBRID, SSM, SWA, ModelConfig
-from repro_torch.kernels.quant import dequantize, leaf, quantize_kv
+from repro_torch.kernels.quant import (dequantize, dequantize_kv, leaf,
+                                       quantize_kv)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.cache import init_cache
 from repro_torch.models.layers import apply_rope, embed, rms_norm, swiglu, unembed
-
-_NOT_PORTED = {
-    CROSS: "cross-attention (ROADMAP Queue 1 item 13)",
-}
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config this slice cannot serve."""
-    for kind in cfg.pattern:
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: layer kind {kind!r} needs {_NOT_PORTED[kind]}")
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP Queue 1 "
-            f"item 13)")
+from repro_torch.models.moe import moe_ffn
 
 
 # --------------------------------------------------------------------------
@@ -164,13 +151,24 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     return embed(tokens, leaf(node), cfg.embed_scale)
 
 
-def _apply_layer(cfg: ModelConfig, kind: str, lp, x, positions,
+def _frontend(cfg: ModelConfig, frontend):
+    if frontend is None:
+        raise ValueError(f"{cfg.name}: a cross-attention layer needs a "
+                         f"frontend (B, {cfg.frontend_tokens}, {cfg.fdim})")
+    return frontend
+
+
+def _apply_layer(cfg: ModelConfig, kind: str, lp, x, positions, frontend,
                  use_kernel: bool):
+    """One layer of the full forward -> (x, aux loss of its MoE or 0)."""
     h = rms_norm(x, lp["pre_norm"], cfg.norm_eps)
     if kind in (ATTN, SWA):
         window = 0 if kind == ATTN else cfg.sliding_window
         x = x + attn_mod.self_attention(cfg, lp, h, positions, window=window,
                                         use_kernel=use_kernel)
+    elif kind == CROSS:
+        x = x + attn_mod.cross_attention(cfg, lp, h,
+                                         _frontend(cfg, frontend))
     elif kind == SSM:
         x = x + ssm_mod.ssm_mixer(cfg, lp, h, use_kernel=use_kernel)
     elif kind == HYBRID:
@@ -185,10 +183,15 @@ def _apply_layer(cfg: ModelConfig, kind: str, lp, x, positions,
 
 
 def _apply_mlp(cfg: ModelConfig, lp, x):
+    """The layer's MLP or MoE after its mixer -> (x, aux loss or 0)."""
+    if cfg.moe is not None:
+        h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+        out, aux = moe_ffn(cfg, lp, h)
+        return x + out, aux
     if cfg.d_ff > 0:
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
         x = x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
-    return x
+    return x, 0.0
 
 
 def _layer_params(params, i: int, r: int):
@@ -197,18 +200,27 @@ def _layer_params(params, i: int, r: int):
     return {name: leaf(node, r) for name, node in params["layers"][i].items()}
 
 
-def hidden(params, cfg: ModelConfig, tokens: torch.Tensor, *,
-           use_kernel: bool = False) -> torch.Tensor:
-    """tokens (B,S) int -> hidden states after the last layer (B,S,D),
-    before the final norm."""
-    check_supported(cfg)
+def _layers(params, cfg: ModelConfig, tokens: torch.Tensor, frontend,
+            use_kernel: bool):
+    """(hidden states after the last layer, the summed aux loss)."""
     x = _embed(params, cfg, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for r in range(cfg.repeats):
         for i, kind in enumerate(cfg.pattern):
-            x = _apply_layer(cfg, kind, _layer_params(params, i, r), x,
-                             positions, use_kernel)
-    return x
+            x, a = _apply_layer(cfg, kind, _layer_params(params, i, r), x,
+                                positions, frontend, use_kernel)
+            aux = aux + a
+    return x, aux
+
+
+def hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
+           frontend: Optional[torch.Tensor] = None, *,
+           use_kernel: bool = False) -> torch.Tensor:
+    """tokens (B,S) int -> hidden states after the last layer (B,S,D),
+    before the final norm.  ``frontend`` (B,F,fdim) feeds the
+    cross-attention layers."""
+    return _layers(params, cfg, tokens, frontend, use_kernel)[0]
 
 
 def logits_from_hidden(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -218,12 +230,13 @@ def logits_from_hidden(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tenso
     return unembed(x, table, cfg.tie_embeddings)
 
 
-def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            use_kernel: bool = False) -> Tuple[torch.Tensor, float]:
-    """tokens: (B,S) int -> (logits (B,S,Vpad), aux_loss).  aux_loss is 0:
-    only MoE layers produce one, and they are not ported yet."""
-    x = hidden(params, cfg, tokens, use_kernel=use_kernel)
-    return logits_from_hidden(params, cfg, x), 0.0
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
+            frontend: Optional[torch.Tensor] = None, *,
+            use_kernel: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B,S) int -> (logits (B,S,Vpad), aux_loss), the aux loss the
+    sum of the MoE layers' load-balance losses (0 without MoE layers)."""
+    x, aux = _layers(params, cfg, tokens, frontend, use_kernel)
+    return logits_from_hidden(params, cfg, x), aux
 
 
 # --------------------------------------------------------------------------
@@ -246,8 +259,8 @@ def _add_mixers(kind: str, x, a_out, m_out):
     return x + (m_out if kind == SSM else a_out)
 
 
-def _prefill_layer(cfg: ModelConfig, kind: str, lp, x, positions, entry,
-                   use_kernel: bool):
+def _prefill_layer(cfg: ModelConfig, kind: str, lp, x, positions, frontend,
+                   entry, use_kernel: bool):
     """Run one layer over the prompt and fill its cache ``entry`` (views
     of the cache tensors at this repeat) in place.  Attention always takes
     the plain dense or chunked path here, as in the JAX package."""
@@ -279,12 +292,26 @@ def _prefill_layer(cfg: ModelConfig, kind: str, lp, x, positions, entry,
                 _ring_fill(buf, t)
             if "k_scale" in entry:
                 entry[name][...], entry[name + "_scale"][...] = quantize_kv(buf)
+    if kind == CROSS:
+        # the frontend's keys and values are the layer's whole cache
+        q, k, v = attn_mod.project_qkv(cfg, lp, h,
+                                       kv_src=_frontend(cfg, frontend))
+        a_out = torch.einsum("bshk,hkd->bsd", attn_mod.attend_all(q, k, v),
+                             lp["wo"])
+        if k.shape[1] != entry["k"].shape[1]:
+            raise ValueError(f"prefill: a frontend of {k.shape[1]} tokens, "
+                             f"the config's is {entry['k'].shape[1]}")
+        for name, t in (("k", k), ("v", v)):
+            if "k_scale" in entry:
+                entry[name][...], entry[name + "_scale"][...] = quantize_kv(t)
+            else:
+                entry[name].copy_(t)
     if kind in (SSM, HYBRID):
         m_out, h_state, conv_tail = ssm_mod.ssm_mixer(
             cfg, lp, h, use_kernel=use_kernel, return_state=True)
         entry["h"].copy_(h_state)
         entry["conv"].copy_(conv_tail)
-    return _apply_mlp(cfg, lp, _add_mixers(kind, x, a_out, m_out))
+    return _apply_mlp(cfg, lp, _add_mixers(kind, x, a_out, m_out))[0]
 
 
 def _at(cache, i: int, r: int):
@@ -292,14 +319,16 @@ def _at(cache, i: int, r: int):
     return {name: t[r] for name, t in cache["layers"][i].items()}
 
 
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int, *,
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
+            frontend: Optional[torch.Tensor] = None, *,
             use_kernel: bool = False, quantize_cache: bool = False
             ) -> Tuple[torch.Tensor, Any]:
     """Run the prompt tokens (B,S) and return (last-token logits (B,Vpad),
     cache) with room for ``max_len`` positions.  ``quantize_cache`` stores
     K/V as int8 with per-slot, per-head scales; decode then dequantizes on
-    read.  ``use_kernel`` runs the SSM scans on the ``ssd_scan`` kernel."""
-    check_supported(cfg)
+    read.  ``use_kernel`` runs the SSM scans on the ``ssd_scan`` kernel.  A
+    cross-attention layer caches the keys and values of ``frontend``
+    (B,F,fdim), which decode reads at every step."""
     b, s = tokens.shape
     if s > max_len and ATTN in cfg.pattern:
         raise ValueError(f"prefill: a prompt of {s} tokens does not fit a "
@@ -311,7 +340,8 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int, *,
     for r in range(cfg.repeats):
         for i, kind in enumerate(cfg.pattern):
             x = _prefill_layer(cfg, kind, _layer_params(params, i, r), x,
-                               positions, _at(cache, i, r), use_kernel)
+                               positions, frontend, _at(cache, i, r),
+                               use_kernel)
     return logits_from_hidden(params, cfg, x[:, -1]), cache
 
 
@@ -325,9 +355,23 @@ def _decode_layer(cfg: ModelConfig, kind: str, lp, entry, x, pos: int,
             window=0 if kind == ATTN else cfg.sliding_window,
             use_kernel=use_kernel, k_scale=entry.get("k_scale"),
             v_scale=entry.get("v_scale"))
+    if kind == CROSS:
+        # q only; every frontend slot of the cache, dense, as in the JAX
+        # package
+        q = torch.einsum("bsd,dhk->bshk", h, lp["wq"])
+        if cfg.qk_norm:
+            q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
+        kc, vc = entry["k"], entry["v"]
+        if "k_scale" in entry:
+            kc = dequantize_kv(kc, entry["k_scale"], h.dtype)
+            vc = dequantize_kv(vc, entry["v_scale"], h.dtype)
+        out = attn_mod.dense_attention(
+            q, kc, vc, torch.arange(1, device=h.device),
+            torch.arange(kc.shape[1], device=h.device), causal=False)
+        a_out = torch.einsum("bshk,hkd->bsd", out, lp["wo"])
     if kind in (SSM, HYBRID):
         m_out = ssm_mod.ssm_decode_step(cfg, lp, h, entry["h"], entry["conv"])
-    return _apply_mlp(cfg, lp, _add_mixers(kind, x, a_out, m_out))
+    return _apply_mlp(cfg, lp, _add_mixers(kind, x, a_out, m_out))[0]
 
 
 def decode_step(params, cfg: ModelConfig, cache, token: torch.Tensor, pos,
@@ -339,7 +383,6 @@ def decode_step(params, cfg: ModelConfig, cache, token: torch.Tensor, pos,
     ``use_kernel`` runs attention on the decode-attention kernel (not for
     an int8 cache).  An ATTN layer has no slot past its end: ``pos >=
     max_len`` raises ``ValueError`` before any state changes."""
-    check_supported(cfg)
     pos = int(pos)
     for i, kind in enumerate(cfg.pattern):
         L = cache["layers"][i]["k"].shape[2] if kind == ATTN else None

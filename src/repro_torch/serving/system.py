@@ -22,10 +22,12 @@ Hot-path architecture (DESIGN.md §§3-5), as in the JAX package:
     from many small concurrent requests; ``quiesce()`` force-flushes any
     lingering partial batches.
 
-This slice ports the main path.  The options whose modules are not ported
-yet raise ``NotImplementedError`` naming the ROADMAP item: supervision and
-fault plans, live spawn/drain/steal, brownout and the admission budget
-(Queue 1 item 8), and frontends for cross-attention members (item 13).
+The port serves the main path, cross-attention members included
+(``frontends``: member index -> (batch, F, fdim) embeddings, held on the
+member's device; zeros where a member has none).  The options whose modules
+are not ported yet raise ``NotImplementedError`` naming the ROADMAP item:
+supervision and fault plans, live spawn/drain/steal, brownout and the
+admission budget (Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -65,6 +67,7 @@ class InferenceSystem:
                  combine: str = "mean",
                  weights: Optional[np.ndarray] = None,
                  fake: bool = False,
+                 frontends: Optional[Dict[int, np.ndarray]] = None,
                  max_seq: int = 128,
                  use_kernel: bool = False,
                  ready_timeout: float = 300.0,
@@ -123,6 +126,7 @@ class InferenceSystem:
             self._dispatch_queue_cls = EDFDispatchQueue
         else:
             self._dispatch_queue_cls = None      # worker default (FIFO)
+        self._frontends = dict(frontends or {})
         self._fake = fake
         self._fake_delay_us = fake_delay_us
         self._use_kernel = use_kernel
@@ -181,6 +185,7 @@ class InferenceSystem:
                    self.alloc.devices[d], batch,
                    AdmissionQueue(), self.prediction_queue, m,
                    self.max_seq, self.segment_size, fake=self._fake,
+                   frontend=self._frontends.get(m),
                    use_kernel=self._use_kernel,
                    combiner=self.combiners.get(d), timers=self.timers,
                    coalesce=self.coalesce, max_wait_us=self.max_wait_us,

@@ -166,12 +166,13 @@ def make_predict_fn(cfg: ModelConfig, use_kernel: bool = False,
     storage and H2D are narrow, math is fp32).  ``quant_out`` additionally
     quantizes the output logits per row (symmetric **int8** over classes,
     also for fp8 members) and returns ``(q (b, C) int8, scale (b, 1) f32)``
-    for the fused dequant-weight-accumulate combine epilogue."""
+    for the fused dequant-weight-accumulate combine epilogue.  ``frontend``
+    (b, F, fdim) feeds a cross-attention member (None for the others)."""
     from repro_torch.models.transformer import hidden, logits_from_hidden
 
-    def predict(params, tokens):
+    def predict(params, tokens, frontend=None):
         with torch.no_grad():
-            x = hidden(params, cfg, tokens, use_kernel=use_kernel)
+            x = hidden(params, cfg, tokens, frontend, use_kernel=use_kernel)
             out = logits_from_hidden(params, cfg, x[:, -1])
             out = out[:, :cfg.vocab_size].contiguous()
             if quant_out:
@@ -208,7 +209,7 @@ class Worker:
                  input_queue: "queue.Queue",
                  prediction_queue: "queue.Queue[Message]",
                  model_idx: int, max_seq: int, segment_size: int,
-                 *, fake: bool = False,
+                 *, fake: bool = False, frontend: Optional[np.ndarray] = None,
                  use_kernel: bool = False, combiner=None,
                  timers: Optional[StageTimers] = None,
                  coalesce: bool = True, max_wait_us: int = 500,
@@ -338,6 +339,13 @@ class Worker:
                 # the forward dequantizes one matrix at a time
                 params = kquant.quantize_params(params, self.member_dtype)
             self.params = kquant.tree_map(lambda t: t.to(self._device), params)
+            # a cross-attention member's frontend embeddings, on the device;
+            # each batch reads its first rows (zeros unless given)
+            self.frontend = None
+            if cfg.frontend_tokens:
+                fe = frontend if frontend is not None else np.zeros(
+                    (batch_size, cfg.frontend_tokens, cfg.fdim), np.float32)
+                self.frontend = torch.as_tensor(fe).to(self._device)
             # quantized members feeding a device combiner emit (q, scale)
             # logits for the fused dequant-weight-accumulate epilogue
             self._quant_out = (kquant.is_quantized_dtype(self.member_dtype)
@@ -348,7 +356,7 @@ class Worker:
             if not fake:   # warm-up (and kernel build) so READY means servable
                 warm = torch.zeros((batch_size, max_seq), dtype=torch.int32,
                                    device=self._device)
-                self.predict_fn(self.params, warm)
+                self.predict_fn(self.params, warm, self.frontend)
                 if self._cuda:
                     torch.cuda.synchronize(self._device)
             self.prediction_queue.put(Message(seg.READY, model_idx, None))
@@ -790,7 +798,9 @@ class Worker:
                     if self.fake_delay_us:    # simulated device time
                         time.sleep(self.fake_delay_us * 1e-6)
                 else:
-                    y = self.predict_fn(self.params, _upload(chunk))
+                    fe = (self.frontend[:chunk.bucket]
+                          if self.frontend is not None else None)
+                    y = self.predict_fn(self.params, _upload(chunk), fe)
                     if self._cuda:        # materialization marker
                         ev = torch.cuda.Event()
                         ev.record(torch.cuda.current_stream(self._device))

@@ -56,6 +56,7 @@ def _randn(dev, seed, *shape):
     (1, 200, 25, 5, 64, 16, torch.bfloat16),
     (1, 70, 4, 1, 256, 0, torch.bfloat16),
     (2, 100, 4, 2, 50, 0, torch.bfloat16),     # bf16 element loads
+    (16, 256, 24, 8, 64, 0, torch.float32),    # granite: hd 64, group 3
 ])
 def test_flash_kernel_matches_plain(dev, b, s, h, kv, hd, window, dtype):
     q = _randn(dev, 1, b, s, h, hd).to(dtype) * hd ** -0.5
@@ -158,6 +159,15 @@ SSD_CASES = [                  # (b, s, h, p, n, chunk)
     (16, 256, 64, 64, 128, 64),  # served: mamba2's chunk
     (16, 256, 50, 64, 16, 64),   # served: hymba's chunk
     (2, 512, 4, 64, 128, 64),  # a mamba2 prefill's 8 chunks
+    # shapes whose layout at the caller's chunk is over 227 KB: the kernel
+    # runs at the largest chunk that fits
+    (2, 300, 4, 64, 128, 128),  # tensor cores at chunk 112
+    (2, 300, 4, 64, 16, 256),   # CUDA cores at chunk 184
+    (1, 200, 2, 8, 256, 128),
+    (2, 150, 3, 64, 512, 64),   # N over 256: CUDA cores, chunk 20
+    (1, 90, 2, 16, 1024, 64),   # a large state at a narrow head
+    (1, 70, 2, 64, 760, 64),    # the largest state at head dim 64, chunk 4
+    (2, 50, 2, 6, 10, 6),       # P, N and chunk not multiples of 4
 ]
 
 
@@ -218,6 +228,7 @@ DECODE_CASES = [               # (b, L, h, kv, hd, dtype, first valid, last)
     (16, 2048, 16, 8, 128, torch.bfloat16, 0, 90),
     (2, 100, 4, 2, 50, torch.bfloat16, 0, 100),      # bf16 element loads
     (2, 300, 8, 2, 80, torch.bfloat16, 0, 293),      # bf16 hd 80
+    (16, 1024, 24, 8, 64, torch.float32, 0, 576),    # granite's last step
 ]
 
 
@@ -282,14 +293,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         ec.ensemble_combine(torch.zeros((1, 4, 8), device=dev),
                             torch.ones(1))               # mixed devices
-    x, dt, A, bm, cm = _ssd_inputs(dev, 1, 16, 2, 6, 16)
-    with pytest.raises(ValueError):                      # P % 4 != 0
-        ssd.ssd_scan(x, dt, A, bm, cm, chunk=16)
+    x, dt, A, bm, cm = _ssd_inputs(dev, 1, 16, 2, 8, 16)
     with pytest.raises(TypeError):
         ssd.ssd_scan(x.double(), dt, A, bm, cm, chunk=16)
-    x, dt, A, bm, cm = _ssd_inputs(dev, 1, 16, 2, 8, 256)
-    with pytest.raises(ValueError):                      # over 227 KB
-        ssd.ssd_scan(x, dt, A, bm, cm, chunk=128)
+    with pytest.raises(ValueError):                      # not contiguous
+        ssd.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A,
+                     bm, cm, chunk=16)
     q1 = torch.zeros((1, 1, 4, 32), device=dev)
     kc = torch.zeros((1, 16, 2, 32), device=dev)
     ok = torch.ones(16, dtype=torch.bool, device=dev)
@@ -307,10 +316,19 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
                              ok)
 
 
+def _frontend(dev, cfg, rows):
+    """One seeded frontend row repeated (rows, F, fdim), or None."""
+    if not cfg.frontend_tokens:
+        return None
+    return _randn(dev, 9, 1, cfg.frontend_tokens, cfg.fdim).expand(
+        rows, -1, -1).contiguous()
+
+
 def _serve(dev, cfgs, X, alloc_row):
     """Serve ``X`` through the kernels (an fp32 and an int8 member, pallas
-    combine) and hold ``Y`` to the members' plain forwards on the card.
-    Returns the kernel launches of the served run."""
+    combine; a cross-attention member fed a nonzero frontend) and hold
+    ``Y`` to the members' plain forwards on the card.  Returns the kernel
+    launches of the served run."""
     from repro_torch.core import AllocationMatrix, cuda_devices
     from repro_torch.models import init_params
     from repro_torch.models.transformer import hidden, logits_from_hidden
@@ -319,9 +337,12 @@ def _serve(dev, cfgs, X, alloc_row):
     params = [init_params(c, seed=i, device=dev) for i, c in enumerate(cfgs)]
     alloc = AllocationMatrix(cuda_devices()[:1], [c.name for c in cfgs],
                              np.array([alloc_row]))
+    fes = [_frontend(dev, c, rows) for c, rows in zip(cfgs, alloc_row)]
     with InferenceSystem(cfgs, params, alloc, max_seq=X.shape[1],
                          segment_size=16, combine="pallas", use_kernel=True,
-                         member_dtypes=["fp32", "int8"]) as s:
+                         member_dtypes=["fp32", "int8"],
+                         frontends={i: f for i, f in enumerate(fes)
+                                    if f is not None}) as s:
         ops.reset_counts()
         Y = s.predict(X)
         launches, plain = ops.kernel_launches(), ops.plain_calls()
@@ -332,7 +353,10 @@ def _serve(dev, cfgs, X, alloc_row):
     scale = None
     with torch.no_grad():
         for i, (cfg, p) in enumerate(zip(cfgs, wparams)):
-            lg = logits_from_hidden(p, cfg, hidden(p, cfg, tok)[:, -1])
+            fe = fes[i]
+            if fe is not None:
+                fe = fe[:1].expand(len(X), -1, -1)
+            lg = logits_from_hidden(p, cfg, hidden(p, cfg, tok, fe)[:, -1])
             lg = lg[:, :cfg.vocab_size]
             if i == 1:
                 qv, sv = kq.quantize_symmetric(lg, axis=-1)
@@ -366,7 +390,22 @@ def test_served_ssm_and_hybrid_ensemble_goes_through_the_kernels(dev):
     assert launches["flash_attention"] >= cfgs[0].num_layers * chunks[0]
 
 
-@pytest.mark.parametrize("name", ["qwen3-1.7b-reduced", "hymba-1.5b-reduced"])
+def test_served_moe_and_cross_attention_ensemble_goes_through_the_kernels(
+        dev):
+    """llama4 (MoE with a shared expert) in fp32 and llama-3.2-vision
+    (cross-attention, a nonzero frontend) in int8."""
+    from repro_torch.configs import ensemble
+    cfgs = ensemble("ENS12")[8:10]
+    X = np.random.default_rng(2).integers(0, 512, (40, 16)).astype(np.int32)
+    launches = _serve(dev, cfgs, X, [16, 8])
+    assert launches.pop("ssd_scan") == 0
+    assert launches.pop("decode_attention") == 0
+    assert all(launches.values()), launches
+
+
+@pytest.mark.parametrize("name", ["qwen3-1.7b-reduced", "hymba-1.5b-reduced",
+                                  "granite-moe-3b-a800m-reduced",
+                                  "llama-3.2-vision-11b-reduced"])
 def test_generation_goes_through_the_kernels(dev, name):
     """prefill + decode on the card: every attention layer of every step
     launches the decode kernel, every SSM layer of the prefill the scan,
@@ -378,10 +417,12 @@ def test_generation_goes_through_the_kernels(dev, name):
     tok = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 90)).astype(np.int32)).to(dev)
     s0, steps = 80, 10          # hymba's 64-slot ring wraps
+    fe = _frontend(dev, cfg, 2)
     runs = {}
     for use_kernel in (True, False):
         ops.reset_counts()
-        lg, cache = prefill(p, cfg, tok[:, :s0], 96, use_kernel=use_kernel)
+        lg, cache = prefill(p, cfg, tok[:, :s0], 96, fe,
+                            use_kernel=use_kernel)
         out = [lg]
         for t in range(steps):
             lg, cache = decode_step(p, cfg, cache, tok[:, s0 + t:s0 + t + 1],

@@ -32,7 +32,9 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import quant as tquant  # noqa: E402
 
 ARCHS = ["qwen3-1.7b", "llama3-8b", "musicgen-large", "gemma3-1b",
-         "h2o-danube-1.8b", "mamba2-1.3b", "hymba-1.5b"]
+         "h2o-danube-1.8b", "mamba2-1.3b", "hymba-1.5b",
+         "granite-moe-3b-a800m", "llama4-scout-17b-a16e",
+         "llama-3.2-vision-11b"]
 B, S, STEPS, MAX_LEN = 2, 24, 4, 64
 ATOL = 1e-4
 
@@ -189,10 +191,23 @@ def _tokens(cfg, n, seed=0):
                                                 ).astype(np.int32)
 
 
+def _frontend(cfg):
+    """A cross-attention member's frontend (B, F, fdim), nonzero (a zero
+    one projects to k = v = 0): one seeded row, repeated.  None for the
+    other members."""
+    if not cfg.frontend_tokens:
+        return None
+    row = np.random.default_rng(77).standard_normal(
+        (1, cfg.frontend_tokens, cfg.fdim)).astype(np.float32)
+    return np.repeat(row, B, axis=0)
+
+
 def _jax_generate(jcfg, jp, X, use_kernel, quantize_cache=False):
     """JAX prefill + decode steps teacher-forced on X: the logits and the
     cache after prefill."""
+    fe = _frontend(jcfg)
     lg, cache = M.prefill(jp, jcfg, jnp.asarray(X[:, :S]), MAX_LEN,
+                          None if fe is None else jnp.asarray(fe),
                           use_kernel=use_kernel, quantize_cache=quantize_cache)
     logits, first = [np.asarray(lg)], jax.tree_util.tree_map(np.asarray, cache)
     for t in range(STEPS):
@@ -204,7 +219,9 @@ def _jax_generate(jcfg, jp, X, use_kernel, quantize_cache=False):
 
 
 def _port_generate(tcfg, tp, X, use_kernel, quantize_cache=False):
+    fe = _frontend(tcfg)
     lg, cache = TM.prefill(tp, tcfg, torch.from_numpy(X[:, :S]), MAX_LEN,
+                           None if fe is None else torch.from_numpy(fe),
                            use_kernel=use_kernel,
                            quantize_cache=quantize_cache)
     first = [{n: t.clone() for n, t in e.items()} for e in cache["layers"]]
@@ -282,7 +299,8 @@ def test_mamba2_decode_long_run(models):
         assert set(entry) == {"h", "conv"}
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-1b", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-1b", "hymba-1.5b",
+                                  "llama-3.2-vision-11b"])
 def test_int8_kv_cache_matches_jax(models, arch):
     """The int8 cache takes the plain path even with ``use_kernel``; the
     logits and the int8 codes follow the JAX package's."""
@@ -322,18 +340,49 @@ def test_decode_past_the_cache_raises(models):
         TM.prefill(tp, tcfg, X, 4)
 
 
-@pytest.mark.parametrize("name", ["granite-moe-3b-a800m-reduced",
-                                  "llama-3.2-vision-11b-reduced"])
-def test_unported_layer_kinds_raise_on_the_generation_path(name):
-    cfg = get_config(name)
-    p = TM.init_params(cfg, seed=0, device="cpu")
-    tok = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.prefill(p, cfg, tok, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.decode_step(p, cfg, {"layers": []}, tok[:, :1], 4)
+def test_capacity_moe_generation_matches_jax():
+    """granite with the capacity dispatch (the full config's ``impl``) at
+    reduced widths: prefill groups the prompt's B*S tokens and each decode
+    step the batch's B tokens, in the JAX package and the port alike."""
+    from repro.configs.base import MoEConfig as JMoE
+    from repro_torch.configs.base import MoEConfig as TMoE
+    jcfg = jget_config("granite-moe-3b-a800m").reduced()
+    tcfg = get_config("granite-moe-3b-a800m").reduced()
+    jcfg = dataclasses.replace(jcfg, moe=JMoE(**{
+        **dataclasses.asdict(jcfg.moe), "impl": "capacity",
+        "capacity_factor": 0.5}))
+    tcfg = dataclasses.replace(tcfg, moe=TMoE(**{
+        **dataclasses.asdict(tcfg.moe), "impl": "capacity",
+        "capacity_factor": 0.5}))
+    jp = M.init_params(jax.random.PRNGKey(8), jcfg)
+    tp = TM.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    X = _tokens(tcfg, S + STEPS, seed=8)
+    want, _ = _jax_generate(jcfg, jp, X, False)
+    got, _, _ = _port_generate(tcfg, tp, X, True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=ATOL)
+
+
+def test_cross_layer_caches_the_frontend(models):
+    """prefill stores the frontend's projected keys and values as the
+    cross layer's cache (decode reads them at every step); without a
+    frontend it raises."""
+    jcfg, tcfg, _, tp = models("llama-3.2-vision-11b")
+    X = _tokens(tcfg, S)
+    fe = torch.from_numpy(_frontend(tcfg))
+    _, cache = TM.prefill(tp, tcfg, torch.from_numpy(X), MAX_LEN, fe)
+    i = tcfg.pattern.index("cross")
+    entry = cache["layers"][i]
+    lp = {k: v[0] for k, v in tp["layers"][i].items()}
+    from repro_torch.models import attention as A
+    _, k, v = A.project_qkv(tcfg, lp, torch.zeros((B, 1, tcfg.d_model)),
+                            kv_src=fe)
+    assert entry["k"].shape[2] == tcfg.frontend_tokens
+    torch.testing.assert_close(entry["k"][0], k)
+    torch.testing.assert_close(entry["v"][0], v)
+    assert entry["k"].abs().max() > 0
+    with pytest.raises(ValueError, match="frontend"):
+        TM.prefill(tp, tcfg, torch.from_numpy(X), MAX_LEN)
 
 
 def test_init_cache_runs_on_the_card_unless_asked():

@@ -14,6 +14,7 @@ import jax.numpy as jnp  # noqa: E402
 
 import repro.models as M  # noqa: E402
 from repro.configs import ensemble as jensemble  # noqa: E402
+from repro.configs import get_config as jget_config  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro.models.transformer import param_shapes as jparam_shapes  # noqa: E402
 from repro_torch import models as TM  # noqa: E402
@@ -89,13 +90,67 @@ def test_init_params_runs_on_the_card_unless_asked():
         TM.init_params(ensemble("ENS4")[0], seed=0)
 
 
-@pytest.mark.parametrize("name", ["granite-moe-3b-a800m-reduced",
-                                  "llama-3.2-vision-11b-reduced"])
-def test_unported_layer_kinds_raise(name):
-    cfg = get_config(name)
+def _frontend(cfg, b, seed=100):
+    """A nonzero frontend (b, F, fdim): one seeded row, repeated (a zero
+    frontend projects to k = v = 0, and cross-attention then adds 0)."""
+    row = np.random.default_rng(seed).standard_normal(
+        (1, cfg.frontend_tokens, cfg.fdim)).astype(np.float32)
+    return np.repeat(row, b, axis=0)
+
+
+@pytest.mark.parametrize("member", range(12))
+def test_every_ens12_member_matches_jax(member):
+    """Every member of ENS12: dense, sliding-window, MoE, SSM, hybrid,
+    audio and the cross-attention member with a nonzero frontend."""
+    jcfg, tcfg = jensemble("ENS12")[member], ensemble("ENS12")[member]
+    jp = M.init_params(jax.random.PRNGKey(30 + member), jcfg)
+    tp = TM.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    X = np.random.default_rng(member).integers(0, jcfg.vocab_size, (2, 24)
+                                               ).astype(np.int32)
+    fe = _frontend(jcfg, 2) if jcfg.frontend_tokens else None
+    want, jaux = M.forward(jp, jcfg, jnp.asarray(X),
+                           None if fe is None else jnp.asarray(fe))
+    got, taux = TM.forward(tp, tcfg, torch.from_numpy(X),
+                           None if fe is None else torch.from_numpy(fe))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+    assert abs(float(taux) - float(jaux)) < 1e-6
+
+
+@pytest.mark.parametrize("sq,f", [(12, 16), (8, 2100)])
+def test_cross_attention_matches_jax(sq, f):
+    """No mask, no RoPE: the plain einsum up to 2048 positions, the chunked
+    loop past them."""
+    from repro.models import attention as JA
+    from repro_torch.models import attention as A
+    jcfg = jget_config("llama-3.2-vision-11b").reduced()
+    tcfg = get_config("llama-3.2-vision-11b").reduced()
+    shapes = jparam_shapes(jcfg)["layers"][jcfg.pattern.index("cross")]
+    rng = np.random.default_rng(sq)
+    lp = {k: (rng.standard_normal(s[1:]) * 0.05).astype(np.float32)
+          for k, s in shapes.items()}
+    x = rng.standard_normal((2, sq, jcfg.d_model)).astype(np.float32)
+    fe = rng.standard_normal((2, f, jcfg.fdim)).astype(np.float32)
+    want = JA.cross_attention(jcfg, {k: jnp.asarray(v) for k, v in lp.items()},
+                              jnp.asarray(x), jnp.asarray(fe))
+    got = A.cross_attention(tcfg, {k: torch.from_numpy(v)
+                                   for k, v in lp.items()},
+                            torch.from_numpy(x), torch.from_numpy(fe))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    assert np.abs(np.asarray(want)).max() > 1e-3
+
+
+def test_cross_layers_read_the_frontend():
+    """The vision member's output moves with its frontend, and a cross
+    layer given none raises rather than attending to nothing."""
+    cfg = get_config("llama-3.2-vision-11b-reduced")
     p = TM.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.forward(p, cfg, torch.zeros((1, 8), dtype=torch.int32))
+    tok = torch.zeros((2, 8), dtype=torch.int32)
+    fe = torch.from_numpy(_frontend(cfg, 2))
+    with_fe, _ = TM.forward(p, cfg, tok, fe)
+    zero_fe, _ = TM.forward(p, cfg, tok, torch.zeros_like(fe))
+    assert (with_fe - zero_fe).abs().max() > 1e-4
+    with pytest.raises(ValueError, match="frontend"):
+        TM.forward(p, cfg, tok)
 
 
 def test_sliding_window_member_matches_jax():

@@ -26,7 +26,11 @@ def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     for m in ("repro_torch.serving.system", "repro_torch.models.ssm",
               "repro_torch.kernels.ssd_scan", "repro_torch.models.cache",
-              "repro_torch.kernels.decode_attention"):
+              "repro_torch.kernels.decode_attention",
+              "repro_torch.models.moe", "repro_torch.core.memory",
+              "repro_torch.core.worst_fit", "repro_torch.core.greedy",
+              "repro_torch.core.bench", "repro_torch.core.optimizer",
+              "repro_torch.core.bbs"):
         assert m in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"

@@ -228,3 +228,70 @@ def test_unported_options_raise(ens2):
             s.spawn_instance(0, 0, 8)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             s.drain_instance(s.workers[0])
+
+
+@pytest.fixture(scope="module")
+def ens4():
+    """All of ENS4: qwen3, llama3, gemma3 (sliding window) and granite
+    (MoE), as the JAX package and the port."""
+    jcfgs = jensemble("ENS4")
+    rng = jax.random.PRNGKey(4)
+    jparams = [M.init_params(jax.random.fold_in(rng, i), c)
+               for i, c in enumerate(jcfgs)]
+    tparams = [params_from_numpy(jax.tree_util.tree_map(np.asarray, p), "cpu")
+               for p in jparams]
+    return jcfgs, ensemble("ENS4"), jparams, tparams
+
+
+def _jax_system(jcfgs, jparams, A, **kw):
+    A = np.array(A)
+    devs = jhost_cpus(A.shape[0], memory_bytes=8 * 1024 ** 3)
+    alloc = JAllocationMatrix(devs, [c.name for c in jcfgs], A)
+    return JInferenceSystem(jcfgs, jparams, alloc, max_seq=SEQ, **kw)
+
+
+@pytest.mark.parametrize("combine", ["mean", "pallas"])
+def test_all_of_ens4_matches_jax_system(ens4, combine):
+    """The paper's four-member ensemble, the MoE member included, on two
+    cells (co-located and data-parallel) against the JAX system."""
+    jcfgs, tcfgs, jparams, tparams = ens4
+    X = _X(50, seed=11)
+    A = [[8, 16, 0, 8], [0, 8, 16, 8]]
+    with make_system(tcfgs, tparams, A, segment_size=16,
+                     combine=combine) as s:
+        Y = s.predict(X)
+    with _jax_system(jcfgs, jparams, A, segment_size=16,
+                     combine=combine) as js:
+        Yj = js.predict(X)
+    np.testing.assert_allclose(Y, Yj, atol=2e-5)
+
+
+def test_cross_attention_member_serves_its_frontend(ens2):
+    """llama-3.2-vision (ENS12's cross-attention member) beside qwen3, with
+    a nonzero frontend (one seeded row repeated, so a row's answer does not
+    depend on where the batcher puts it) against the JAX system given the
+    same frontend; the frontend moves Y, so it was read."""
+    jcfgs = [jensemble("ENS12")[9], jensemble("ENS4")[0]]
+    tcfgs = [ensemble("ENS12")[9], ensemble("ENS4")[0]]
+    jparams = [M.init_params(jax.random.PRNGKey(9), jcfgs[0]),
+               ens2[2][0]]
+    tparams = [params_from_numpy(jax.tree_util.tree_map(np.asarray,
+                                                        jparams[0]), "cpu"),
+               ens2[3][0]]
+    cfg = tcfgs[0]
+    row = np.random.default_rng(12).standard_normal(
+        (1, cfg.frontend_tokens, cfg.fdim)).astype(np.float32)
+    fe = np.repeat(row, 16, axis=0)
+    X = _X(40, seed=12)
+    kw = dict(segment_size=16, combine="pallas")
+    with make_system(tcfgs, tparams, [[16, 8]], frontends={0: fe},
+                     **kw) as s:
+        Y = s.predict(X)
+        assert s.workers[0].frontend.shape == fe.shape
+    with _jax_system(jcfgs, jparams, [[16, 8]], frontends={0: fe}, **kw) as js:
+        Yj = js.predict(X)
+    np.testing.assert_allclose(Y, Yj, atol=2e-5)
+    with make_system(tcfgs, tparams, [[16, 8]], **kw) as s:
+        assert not s.workers[0].frontend.any()        # the zero default
+        Y0 = s.predict(X)
+    assert np.abs(Y - Y0).max() > 1e-4

@@ -26,7 +26,6 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import quant as tquant  # noqa: E402
 from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
-from repro_torch.models.transformer import check_supported  # noqa: E402
 
 SSD_CASES = [                    # (b, s, h, p, n, chunk) — test_kernels.py:59-64
     (2, 64, 4, 32, 16, 16),
@@ -114,10 +113,44 @@ def test_ssd_plan_fits_shared_memory(p, n, chunk):
         assert pl["stages"] == 2 and pl["groups"] == 1
 
 
-def test_ssd_plan_refuses_what_does_not_fit():
-    assert tssd.plan(64, 128, 128)["stages"] == 0      # 246 KB for one stage
-    assert tssd.plan(64, 256, 64)["stages"] == 1
-    assert tssd.plan(64, 16, 256)["stages"] == 0       # CUDA cores: 372 KB
+# (p, n, chunk, route): shapes whose layout at the caller's chunk does not
+# fit 227 KB, or whose state is past the tensor-core route's 256
+OVER_CASES = [
+    (64, 128, 128, "tensor_cores"),   # 246 KB for one stage at chunk 128
+    (64, 16, 256, "cuda_cores"),      # 372 KB at chunk 256
+    (8, 256, 128, "tensor_cores"),
+    (64, 512, 64, "cuda_cores"),      # N over 256
+    (64, 512, 16, "cuda_cores"),
+    (16, 1024, 64, "cuda_cores"),     # a large state at a narrow head
+    (64, 760, 64, "cuda_cores"),      # the largest state at head dim 64
+]
+
+
+@pytest.mark.parametrize("p,n,chunk,route", OVER_CASES)
+def test_ssd_plan_gives_every_shape_a_route_that_fits(p, n, chunk, route):
+    """Where the caller's chunk does not fit, the kernel runs at the largest
+    chunk that does (the result does not depend on it beyond rounding), and
+    a state over 256 takes the CUDA-core route."""
+    pl = tssd.plan(p, n, chunk)
+    assert pl["route"] == route
+    assert pl["stages"] in (1, 2)
+    assert pl["smem"] <= SMEM_LIMIT and pl["scores_smem"] <= SMEM_LIMIT
+    assert 0 < pl["chunk"] <= chunk and pl["chunk"] % 4 == 0
+    if pl["route"] == "cuda_cores":
+        assert pl["groups"] == 1 and n <= tssd.max_core_state(p)
+    if pl["chunk"] < chunk:            # no larger chunk fits
+        assert not tssd._fits(tssd._layout(p, n, pl["chunk"] + 4))
+
+
+def test_ssd_plan_keeps_the_served_chunks_and_raises_only_past_any_layout():
+    assert tssd.plan(64, 128, 64)["chunk"] == 64       # mamba2, served
+    assert tssd.plan(64, 16, 64)["chunk"] == 64        # hymba, served
+    assert tssd.plan(32, 16, 6)["chunk"] == 4          # rounded down to 4s
+    assert tssd.max_core_state(64) == 760
+    assert tssd._core_smem(64, 760, 4) <= SMEM_LIMIT
+    assert tssd._core_smem(64, 764, 4) > SMEM_LIMIT
+    with pytest.raises(ValueError, match="at most 760"):
+        tssd.plan(64, 764, 64)
 
 
 def test_causal_conv_matches_jax():
@@ -192,7 +225,6 @@ def test_ssm_mixer_matches_jax(members, use_kernel):
 @pytest.mark.parametrize("use_kernel", [False, True])
 def test_forward_matches_jax(members, name, use_kernel):
     jcfg, tcfg, jp, tp = members[name]
-    check_supported(tcfg)                          # no NotImplementedError
     X = np.random.default_rng(9).integers(0, jcfg.vocab_size, (3, 40)
                                           ).astype(np.int32)
     want, _ = M.forward(jp, jcfg, jnp.asarray(X), use_kernel=use_kernel)
