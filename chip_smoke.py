@@ -68,6 +68,38 @@ Phases, one JSON line each; any failed phase exits non-zero:
    torch system in Benchmark Mode, with its defaults: no kernels, the
    "mean" combine) under ``MemoBench``.  It prints both matrices, their
    rows/s, the matrices evaluated and the greedy's speedup over its start.
+7. ``control:qwen3``: qwen3-1.7b at full width in fp32 and the same
+   widths at 14 layers in int8, trees built on the host, on two cells of
+   this card (``cuda_cells(2)``, allocation [[16, 8], [16, 0]]: member 0
+   has an instance on each cell), ``combine="pallas"``, ``use_kernel=True``,
+   supervised.  Four concurrent requests of 8 rows through
+   ``serve(system, port=0)`` and an ``EnsembleClient`` over HTTP (with the
+   JSON encode and decode of one answer timed on the host) beside the same
+   rows in process; a burst of the pair phase's traffic at rest; the same
+   burst while ``ReconfigController.apply`` rebatches member 0 on cell 1
+   to 8 (a new generation is spawned and the old instance drained: the
+   device GB before, after the spawn and after the drain, which must
+   return at least member 0's tree); the same burst again while the new
+   instance's sender is killed on its next chunk (one quarantine, its
+   units replayed on the sibling, no request failed); then the
+   ``LiveBench`` snapshot.  Every row of every answer is held to the
+   members' plain forwards on the card as in the pair phase, and the
+   launch counts must show flash per attention layer per chunk, both
+   combine kernels and no plain version;
+8. ``brownout:qwen3``: a second system on the same host trees, one cell,
+   ``combine="weighted"``, member 0 slowed by a repeating ``slow`` fault,
+   an admission budget of one burst's bytes and a ``LiveBench`` attached
+   (``set_profiler``), warmed by one burst.  With the next burst in
+   flight an HTTP request is refused with 429 and a ``Retry-After`` from
+   ``retry_after_s``; with the ``BrownoutController`` running the burst
+   after it is demoted in flight: those requests complete with quality
+   under 1, their forgiven rows held to the int8 member's plain forward
+   alone and the others to the full combine;
+9. ``launch:ENS4``: ``python -m repro_torch.launch.serve --ensemble ENS4
+   --cells 2 --bench analytic --port 0 --duration 20 --reconfig
+   --brownout`` as a subprocess on this card: one request answered with
+   finite Y of the right shape, ``GET /metrics`` with the health gauges
+   and the controller and brownout sections, and rc 0.
 
 The line before the last holds the card's name and power limit; before it,
 the per-kernel summary line.  The last line is ``{"ok": true, "device":
@@ -87,6 +119,8 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1474,6 +1508,463 @@ def phase_alloc(torch, seed: int, smi: str) -> dict:
     return launches
 
 
+CONTROL_SEQ, CONTROL_SEG = 256, 32
+CONTROL_REQ, CONTROL_ROWS = 4, 40       # the pair phase's traffic
+HTTP_REQ, HTTP_ROWS = 4, 8              # JSON floats: ~5 MB a row of qwen3
+CONTROL_ALLOC = [[16, 8], [16, 0]]      # member 0 on both cells: a sibling
+REBATCH_ALLOC = [[16, 8], [8, 0]]       # member 0 on cell 1 at batch 8
+SLOW_CHUNK_S = 0.05                     # the brownout drill's slow member 0
+LAUNCH_DURATION_S = 20
+
+
+def latency_summary(lat_ms) -> dict:
+    import numpy as np
+    return {"p50_ms": float(np.percentile(lat_ms, 50)),
+            "max_ms": float(max(lat_ms)), "latency_ms": list(lat_ms)}
+
+
+def served_checks(name: str, Y, rows, ref, what: str) -> dict:
+    """Hold ``Y`` (the answers for ``X[rows]``) to the plain reference
+    ``ref`` = (logits of both members, the int8 member's row scales,
+    weights), as the pair phase does; fails on any row off."""
+    logits, scales, weights = ref
+    c = held_to(Y, [lg[rows] for lg in logits], scales[rows], weights)
+    if c["rows_off"]:
+        fail(f"{name}: {what}: {c['bad_elements']} elements in rows "
+             f"{c['rows_off'][:20]} off by more than atol {c['atol']:.3g} "
+             f"from a whole int8 step, max residual {c['max_residual']:.3g}")
+    if c["int8_flips"] > MAX_FLIP_SHARE * Y.size:
+        fail(f"{name}: {what}: {c['int8_flips']} int8 code flips, over "
+             f"{MAX_FLIP_SHARE:.0%} of {Y.size} elements")
+    return {k: v for k, v in c.items() if k != "row_residual"}
+
+
+def launches_hold(name: str, cfgs, batches, rows: int, launches, plain,
+                  combine_kernels: bool) -> dict:
+    """The served run went through the kernels: flash once per attention
+    layer per chunk at least (``rows`` rows, each member's largest batch),
+    both combine kernels where the fused combine ran, no plain version."""
+    if any(plain.values()):
+        fail(f"{name}: plain versions ran on the served path: {plain}")
+    least = sum(layer_counts(c)[0] * math.ceil(rows / b)
+                for c, b in zip(cfgs, batches))
+    if launches["flash_attention"] < least:
+        fail(f"{name}: flash_attention launched "
+             f"{launches['flash_attention']} times, expected at least "
+             f"{least}")
+    for kname in ("ensemble_combine", "ensemble_combine_quant"):
+        if combine_kernels and launches[kname] < 1:
+            fail(f"{name}: {kname} never launched on the served path")
+    return {"flash_attention": least}
+
+
+def http_round(torch, url: str, X, rows) -> dict:
+    """``HTTP_REQ`` concurrent requests of ``HTTP_ROWS`` rows through an
+    ``EnsembleClient`` over HTTP, and what one answer costs in JSON: the
+    server's encode (``y.tolist()`` and ``json.dumps``, as the server
+    answers) and the client's decode (``json.loads`` and ``np.asarray``,
+    as the client reads it), timed on the host."""
+    import numpy as np
+    from repro_torch.serving.client import EnsembleClient
+    client = EnsembleClient(url=url)
+    t0 = time.perf_counter()
+    handles = [client.predict_async(X[rows[i * HTTP_ROWS:(i + 1) * HTTP_ROWS]])
+               for i in range(HTTP_REQ)]
+    Y = np.concatenate([h.result(600.0) for h in handles])
+    wall = time.perf_counter() - t0
+    y8 = Y[:HTTP_ROWS]
+    t0 = time.perf_counter()
+    body = json.dumps({"predictions": y8.tolist()}).encode()
+    encode = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = np.asarray(json.loads(body)["predictions"], np.float32)
+    decode = time.perf_counter() - t0
+    if not np.array_equal(back, y8):
+        fail("HTTP: the JSON round trip changed a float")
+    return {"Y": Y, "wall_s": wall, "body_mb": len(body) / 1e6,
+            "encode_ms": 1e3 * encode, "decode_ms": 1e3 * decode,
+            "metrics": client.metrics()}
+
+
+def phase_control(torch, seed: int, smi: str) -> dict:
+    """``control:qwen3`` then ``brownout:qwen3`` (see the module
+    docstring).  Returns the kernel launches of both served runs."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import AllocationMatrix, cuda_cells, cuda_devices
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant as kq
+    from repro_torch.models import init_params
+    from repro_torch.serving import InferenceSystem
+    from repro_torch.serving.admission import AdmissionBudget
+    from repro_torch.serving.control import (BrownoutController, LiveBench,
+                                             ReconfigController)
+    from repro_torch.serving.faults import FaultPlan, FaultSpec
+    from repro_torch.serving.segments import PredictOptions
+    from repro_torch.serving.server import _header_s
+    from repro_torch.serving.server import serve as http_serve
+
+    name = "qwen3-1.7b"
+    dev = torch.device("cuda", 0)
+    cfg0, cfg1 = get_config(name), cut(get_config(name), PAIRS[0][2])
+    cfgs, names = [cfg0, cfg1], [cfg0.name, cfg1.name]
+    t0 = time.perf_counter()
+    params = [init_params(cfg0, seed, "cpu"),
+              init_params(cfg1, seed + 1, "cpu")]
+    t_init = time.perf_counter() - t0
+    X = np.random.default_rng(seed + 17).integers(
+        0, cfg0.vocab_size, (CONTROL_REQ * CONTROL_ROWS, CONTROL_SEQ)
+    ).astype(np.int32)
+    all_rows = np.arange(len(X))
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # ---- A. control:qwen3 ------------------------------------------------
+    plan = FaultPlan()                     # armed mid-run, see below
+    cells = cuda_cells(2)[:2]
+    t0 = time.perf_counter()
+    system = InferenceSystem(
+        cfgs, params, AllocationMatrix(cells, names, np.array(CONTROL_ALLOC)),
+        combine="pallas", use_kernel=True, max_seq=CONTROL_SEQ,
+        segment_size=CONTROL_SEG, member_dtypes=["fp32", "int8"],
+        supervise=True, fault_plan=plan)
+    t_build = time.perf_counter() - t0
+    ctl = ReconfigController(system, replan=False, steal=False)
+    httpd, batcher = http_serve(system, port=0)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        weights = [float(x) for x in system.accumulator.weights]
+        torch.cuda.synchronize()
+        ops.reset_counts()                 # counts cover the served run
+        # the front door: HTTP beside the same rows in process
+        http_rows = all_rows[:HTTP_REQ * HTTP_ROWS]
+        front = http_round(torch, url, X, http_rows)
+        t0 = time.perf_counter()
+        Y_inproc = np.concatenate([
+            system.predict(X[http_rows[i * HTTP_ROWS:(i + 1) * HTTP_ROWS]])
+            for i in range(HTTP_REQ)])
+        inproc_s = time.perf_counter() - t0
+        # a burst with the topology at rest, for the spawn's latency blip
+        Y_base, wall_base, lat_base = serve(system, X, CONTROL_REQ,
+                                            CONTROL_ROWS)
+        # live reconfiguration while a burst is in flight: member 0 on
+        # cell 1 is rebatched, i.e. a new generation is spawned and the
+        # old instance drained
+        (old,) = [w for w in system.instances(0) if w.device_idx == 1]
+        old_bytes = tree_bytes(old.params)
+        target = AllocationMatrix(cells, names, np.array(REBATCH_ALLOC))
+        torch.cuda.synchronize()
+        b_before = torch.cuda.memory_allocated(dev)
+        t_burst = time.perf_counter()
+        handles = [system.predict_async(
+            X[i * CONTROL_ROWS:(i + 1) * CONTROL_ROWS])
+            for i in range(CONTROL_REQ)]
+        t0 = time.perf_counter()
+        ctl.apply(target)
+        apply_s = time.perf_counter() - t0
+        Y_reconf = np.concatenate([h.result(600.0) for h in handles])
+        wall_reconf = max(h.req.t_submit + h.latency_s
+                          for h in handles) - t_burst
+        lat_reconf = [1e3 * h.latency_s for h in handles]
+        (new,) = [w for w in system.instances(0) if w.device_idx == 1]
+        if system.alloc.A.tolist() != REBATCH_ALLOC or new is old or \
+                new.generation != 1 or new.batch_size != 8:
+            fail(f"control:qwen3: the rebatch did not land: "
+                 f"A={system.alloc.A.tolist()}, events "
+                 f"{ctl.stats()['events']}")
+        torch.cuda.synchronize()
+        b_spawned = torch.cuda.memory_allocated(dev)
+        if old.join(120.0):
+            fail("control:qwen3: the drained instance did not stop")
+        del old
+        gc.collect()
+        torch.cuda.synchronize()
+        b_drained = torch.cuda.memory_allocated(dev)
+        returned = b_spawned - b_drained
+        if returned < old_bytes:
+            fail(f"control:qwen3: the drain returned {returned} bytes, "
+                 f"less than member 0's tree, {old_bytes}")
+        # supervision: the new instance's sender dies on its next chunk,
+        # mid-burst; its units are replayed on the sibling on cell 0
+        fault_worker = new.worker_id
+        plan.add(FaultSpec(stage="sender", kind="raise", after=0,
+                           worker=fault_worker))
+        handles = [system.predict_async(
+            X[i * CONTROL_ROWS:(i + 1) * CONTROL_ROWS])
+            for i in range(CONTROL_REQ)]
+        try:
+            Y_fault = np.concatenate([h.result(600.0) for h in handles])
+        except Exception as e:
+            fail(f"control:qwen3: a request failed under the fault: {e!r}")
+        quality = [h.quality for h in handles]
+        launches = ops.kernel_launches()
+        plain = ops.plain_calls()
+        counters = system.serving_counters()
+        metrics = front["metrics"]
+        live = ctl.live.snapshot()
+        live["segment_time_s"] = {
+            k: t * math.ceil(CONTROL_SEG / int(k.rsplit("|b", 1)[1]))
+            for k, t in live["latency_ewma_s"].items()}
+        workers = [system.instances(0)[0], system.instances(1)[0]]
+        with torch.no_grad():             # the pair phase's reference
+            tok = torch.from_numpy(X).to(workers[0].device.torch_device)
+            blocks = [tok[lo:lo + 16] for lo in range(0, len(X), 16)]
+            ref = (*combined_reference(torch, kq, cfgs, workers, None, X,
+                                       [blocks, blocks], use_kernel=False),
+                   weights)
+            del tok, blocks
+    finally:
+        httpd.shutdown()
+        batcher.stop()
+        system.shutdown()
+    del system, ctl, workers, new, handles, httpd, batcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    # the quarantined instance's stage threads are leaked by design, and
+    # its device tree with them (the JAX package keeps its buffers alike)
+    gb_after_shutdown = torch.cuda.memory_allocated(dev) / 1e9
+    if plan.fired != [(fault_worker, "sender", "raise")]:
+        fail(f"control:qwen3: the fault fired as {plan.fired}")
+    if counters.get("quarantines") != 1 or \
+            counters.get("segments_replayed", 0) < 1:
+        fail(f"control:qwen3: quarantines {counters.get('quarantines')}, "
+             f"segments replayed {counters.get('segments_replayed')}")
+    if any(q != 1.0 for q in quality):
+        fail(f"control:qwen3: the replayed requests' quality {quality}")
+    if not any(k.startswith("health.") for k in metrics["gauges"]):
+        fail("control:qwen3: /metrics shows no health gauges")
+    checks = {"http": served_checks("control:qwen3", front["Y"], http_rows,
+                                    ref, "HTTP"),
+              "in_process": served_checks("control:qwen3", Y_inproc,
+                                          http_rows, ref, "in process"),
+              "burst_at_rest": served_checks("control:qwen3", Y_base,
+                                             all_rows, ref, "burst"),
+              "burst_during_rebatch": served_checks(
+                  "control:qwen3", Y_reconf, all_rows, ref, "rebatch"),
+              "burst_under_fault": served_checks(
+                  "control:qwen3", Y_fault, all_rows, ref, "fault")}
+    served_rows = len(http_rows) * 2 + 3 * len(X)
+    minima = launches_hold("control:qwen3", cfgs, [16, 8], served_rows,
+                           launches, plain, combine_kernels=True)
+    per_http_ms = 1e3 * front["wall_s"]
+    emit({"phase": "control:qwen3", "ok": True, "card": smi,
+          "members": names, "member_dtypes": ["fp32", "int8"],
+          "cells": [c.name for c in cells],
+          "cell_memory_gb": [c.memory_bytes / 1e9 for c in cells],
+          "allocation": CONTROL_ALLOC, "rebatched_to": REBATCH_ALLOC,
+          "max_seq": CONTROL_SEQ, "segment_size": CONTROL_SEG,
+          "host_init_s": t_init, "system_build_s": t_build,
+          "front_door": {
+              "requests": HTTP_REQ, "rows_per_request": HTTP_ROWS,
+              "http_wall_s": front["wall_s"],
+              "in_process_wall_s": inproc_s,
+              "json_body_mb_per_answer": front["body_mb"],
+              "server_encode_ms_per_answer": front["encode_ms"],
+              "client_decode_ms_per_answer": front["decode_ms"],
+              "json_share_of_http_wall": HTTP_REQ * (
+                  front["encode_ms"] + front["decode_ms"]) / per_http_ms,
+              "note": "requests sent together; encode and decode timed "
+                      "on one 8-row answer, on the host"},
+          "burst_at_rest": {"wall_s": wall_base,
+                            **latency_summary(lat_base)},
+          "reconfig": {"apply_s": apply_s, "spawn_note":
+                       "apply() = spawn (host-to-card copy, warm-up "
+                       "forward, synchronise) + drain(wait=False)",
+                       "burst_wall_s": wall_reconf,
+                       **latency_summary(lat_reconf),
+                       "device_gb_before_spawn": b_before / 1e9,
+                       "device_gb_after_spawn": b_spawned / 1e9,
+                       "device_gb_after_drain": b_drained / 1e9,
+                       "bytes_returned_by_drain": b_spawned - b_drained,
+                       "member0_tree_bytes": old_bytes},
+          "supervision": {"fault": plan.fired,
+                          "quarantines": counters.get("quarantines"),
+                          "segments_replayed":
+                              counters.get("segments_replayed"),
+                          "worker_crashes": counters.get("worker_crashes"),
+                          "quality": quality},
+          "livebench": live, "peak_device_gb": peak_gb,
+          "device_gb_after_shutdown": gb_after_shutdown,
+          "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
+          "checks": checks, "launches": launches, "launch_minima": minima,
+          "plain_calls": plain})
+    total = dict(launches)
+
+    # ---- B. brownout:qwen3 -------------------------------------------------
+    budget = AdmissionBudget(max_bytes=len(X) * CONTROL_SEQ * 4)
+    slow = FaultPlan(FaultSpec(stage="predictor", kind="slow",
+                               stall_s=SLOW_CHUNK_S, worker="w0.0"))
+    system = InferenceSystem(
+        cfgs, params, AllocationMatrix(cuda_devices()[:1], names,
+                                       np.array([[16, 8]])),
+        combine="weighted", use_kernel=True, max_seq=CONTROL_SEQ,
+        segment_size=CONTROL_SEG, member_dtypes=["fp32", "int8"],
+        fault_plan=slow, admission_budget=budget)
+    httpd, batcher = http_serve(system, port=0)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        # a burst at the full tier warms the live bench that prices the
+        # drain estimate behind Retry-After
+        system.set_profiler(LiveBench(cfgs, seq=CONTROL_SEQ))
+        Y_warm, _, _ = serve(system, X, CONTROL_REQ, CONTROL_ROWS)
+        # the budget is one burst's bytes: with a burst in flight, an HTTP
+        # request is refused with 429 and a Retry-After
+        handles = [system.predict_async(
+            X[i * CONTROL_ROWS:(i + 1) * CONTROL_ROWS])
+            for i in range(CONTROL_REQ)]
+        req = urllib.request.Request(
+            url + "/v2/predict",
+            data=json.dumps({"tokens": X[:HTTP_ROWS].tolist()}).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            urllib.request.urlopen(req, timeout=600)
+            fail("brownout:qwen3: the admission budget admitted a request "
+                 "over it")
+        except urllib.error.HTTPError as e:
+            refused = {"code": e.code, "retry_after": e.headers.get(
+                "Retry-After"), "body": json.loads(e.read())}
+        drain_after = system.retry_after_s()
+        t0 = time.perf_counter()
+        Y_full = np.concatenate([h.result(600.0) for h in handles])
+        drained_in = time.perf_counter() - t0
+        # the brownout drill: member 0 runs slow; the controller's level
+        # rises and demotes the burst in flight to the int8 member
+        ctl = BrownoutController(system, depth_ref=1.0).start()
+        handles = [system.predict_async(
+            X[i * CONTROL_ROWS:(i + 1) * CONTROL_ROWS])
+            for i in range(CONTROL_REQ)]
+        Ys = [h.result(600.0) for h in handles]
+        stats = ctl.stats()
+        launches = ops.kernel_launches()
+        plain = ops.plain_calls()
+        counters = system.serving_counters()
+        served = [(h.quality, list(h.req.members), h._missing_w)
+                  for h in handles]
+    finally:
+        httpd.shutdown()
+        batcher.stop()
+        system.shutdown()
+    del system, ctl, handles, params, httpd, batcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    ra = refused["body"].get("retry_after_s")
+    if refused["code"] != 429 or ra is None or \
+            refused["retry_after"] != _header_s(ra):
+        fail(f"brownout:qwen3: the refusal was {refused}")
+    demoted = [i for i, (q, _, _) in enumerate(served) if q < 1.0]
+    if not demoted:
+        fail(f"brownout:qwen3: no request was demoted ({stats})")
+    logits, scales, _ = ref
+    checks = {"burst_warm": served_checks("brownout:qwen3", Y_warm, all_rows,
+                                          ref, "warm burst"),
+              "burst_full": served_checks("brownout:qwen3", Y_full, all_rows,
+                                          ref, "full burst")}
+    # each row is the full combine or, where member 0 was forgiven, the
+    # int8 member's alone (the accumulator renormalizes over who reported)
+    full_rows, alone_rows, Y_full_rows, Y_alone = [], [], [], []
+    for i, (y, (q, members, missing)) in enumerate(zip(Ys, served)):
+        rows = all_rows[i * CONTROL_ROWS:(i + 1) * CONTROL_ROWS]
+        alone = np.ones(len(rows), bool) if members == [1] else (
+            np.zeros(len(rows), bool) if missing is None else missing > 0)
+        full_rows += list(rows[~alone])
+        Y_full_rows.append(y[~alone])
+        alone_rows += list(rows[alone])
+        Y_alone.append(y[alone])
+    if full_rows:
+        checks["rows_full"] = served_checks(
+            "brownout:qwen3", np.concatenate(Y_full_rows),
+            np.array(full_rows), ref, "full rows")
+    checks["rows_int8_alone"] = served_checks(
+        "brownout:qwen3", np.concatenate(Y_alone), np.array(alone_rows),
+        (logits, scales, [0.0, 1.0]), "demoted rows")
+    minima = launches_hold("brownout:qwen3", cfgs[1:], [8],
+                           3 * len(X), launches, plain,
+                           combine_kernels=False)
+    emit({"phase": "brownout:qwen3", "ok": True, "card": smi,
+          "members": names, "member_dtypes": ["fp32", "int8"],
+          "allocation": [[16, 8]], "combine": "weighted",
+          "slow_fault": {"stage": "predictor", "stall_s": SLOW_CHUNK_S,
+                         "worker": "w0.0"},
+          "admission_budget_bytes": budget.max_bytes,
+          "refused": {"code": refused["code"],
+                      "retry_after_header": refused["retry_after"],
+                      "retry_after_s": ra,
+                      "retry_after_s_after": drain_after,
+                      "burst_done_after_s": drained_in},
+          "brownout": stats,
+          "requests_demoted": counters.get("requests_demoted"),
+          "quality": [q for q, _, _ in served],
+          "rows_full": len(full_rows), "rows_int8_alone": len(alone_rows),
+          "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
+          "checks": checks, "launches": launches, "launch_minima": minima,
+          "plain_calls": plain})
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_launch(smi: str) -> None:
+    """``launch:ENS4``: the serve launcher as a user starts it, on two
+    cells of this card, with the controller and brownout on."""
+    import os
+    import numpy as np
+    from repro_torch.serving.client import EnsembleClient
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--ensemble",
+           "ENS4", "--cells", "2", "--bench", "analytic", "--port", "0",
+           "--duration", str(LAUNCH_DURATION_S), "--reconfig", "--brownout"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            env={**os.environ, "PYTHONPATH": str(SRC)})
+    try:
+        url, lines = None, []
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if line.startswith("serving "):
+                url = line.split(" on ", 1)[1].split()[0]
+                break
+        if url is None:
+            fail(f"launch:ENS4: the launcher did not serve: {lines[-20:]}")
+        up_s = time.perf_counter() - t0
+        from repro_torch.configs import ensemble
+        cfgs = ensemble("ENS4")
+        X = np.random.default_rng(5).integers(
+            0, cfgs[0].vocab_size, (8, 16)).astype(np.int32)
+        client = EnsembleClient(url=url)
+        t0 = time.perf_counter()
+        Y = client.predict(X)
+        request_s = time.perf_counter() - t0
+        m = client.metrics()
+        rest, _ = proc.communicate(timeout=LAUNCH_DURATION_S + 120)
+        lines += rest.splitlines()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        fail(f"launch:ENS4: rc {proc.returncode}: {lines[-20:]}")
+    if Y.shape != (len(X), cfgs[0].vocab_size) or not np.isfinite(Y).all():
+        fail(f"launch:ENS4: Y {Y.shape}, finite {np.isfinite(Y).all()}")
+    health = {k: v["last"] for k, v in m["gauges"].items()
+              if k.startswith("health.")}
+    if not health or m.get("controller") is None or \
+            m.get("brownout") is None:
+        fail(f"launch:ENS4: /metrics lacks health, controller or brownout: "
+             f"{sorted(m)}")
+    emit({"phase": "launch:ENS4", "ok": True, "card": smi, "command":
+          " ".join(["python", "-m"] + cmd[2:]), "rc": proc.returncode,
+          "seconds_to_serve": up_s, "request_s": request_s,
+          "Y_shape": list(Y.shape), "health": health,
+          "controller": {k: m["controller"][k] for k in
+                         ("generation", "counters", "enabled")},
+          "brownout": m["brownout"], "output": lines[:12]})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1543,6 +2034,11 @@ def main(argv=None) -> int:
     # 6. the allocator, Benchmark Mode on this card
     for k, v in phase_alloc(torch, args.seed, smi).items():
         launches[k] = launches.get(k, 0) + v
+
+    # 7-9. the front door and the control plane, then the serve launcher
+    for k, v in phase_control(torch, args.seed, smi).items():
+        launches[k] = launches.get(k, 0) + v
+    phase_launch(smi)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     emit({"kernels": kernels})

@@ -6,9 +6,12 @@ Several logical cells may map to the one card (or the one CPU), each with its
 own memory budget, which is what the allocation algorithms reason about.
 
 ``cuda_devices()`` reads the real cards and raises when there are none: an
-entry point that asked for the card never runs on the CPU instead.  Tests ask
-for the CPU explicitly through ``host_cpus()``, and ``simulated_gpus()``
-gives cells with no device behind them for the allocator's analytic bench.
+entry point that asked for the card never runs on the CPU instead.
+``cuda_cells(n)`` splits each card into ``n`` cells: the counterpart of
+the JAX package's ``tpu_cells`` and of its launcher's ``--cells`` on one
+device.  Tests ask for the CPU explicitly through ``host_cpus()``, and
+``simulated_gpus()`` gives cells with no device behind them for the
+allocator's analytic bench.
 """
 from __future__ import annotations
 
@@ -82,4 +85,26 @@ def cuda_devices() -> list:
         out.append(DeviceSpec(f"cuda{i}:{props.name}", "GPU",
                               int(props.total_memory), peak, bw,
                               torch_device=torch.device("cuda", i)))
+    return out
+
+
+def cuda_cells(n: int) -> list:
+    """``n`` allocation cells per visible CUDA card, each backed by that
+    card and holding 1/n of its memory and 1/n of its ``CARD_RATES``, so
+    that no allocator or analytic bench counts the card twice.  Each cell
+    has its own name (``cuda0.1:<card name>``), hence its own ``key()``: a
+    live bench keys its readings on it.  Raises when there is no card.
+
+    Each cell's budget is checked alone; the cells share the card's memory
+    and its one stream in fact, so a cell may fail to allocate (a
+    ``torch.cuda.OutOfMemoryError``) while its own budget has room."""
+    if n < 1:
+        raise ValueError(f"cuda_cells(): n must be >= 1, got {n}")
+    out = []
+    for card in cuda_devices():
+        i = card.torch_device.index
+        out += [DeviceSpec(f"cuda{i}.{j}:{card.name.split(':', 1)[1]}", "GPU",
+                           card.memory_bytes // n, card.peak_flops / n,
+                           card.mem_bw / n, torch_device=card.torch_device)
+                for j in range(n)]
     return out

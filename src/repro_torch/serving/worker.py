@@ -99,9 +99,11 @@ immediately, idle queue → full ``max_wait_us``; ROADMAP item b).
 """
 from __future__ import annotations
 
+import gc
 import queue
 import threading
 import time
+import traceback
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -360,14 +362,31 @@ class Worker:
                 if self._cuda:
                     torch.cuda.synchronize(self._device)
             self.prediction_queue.put(Message(seg.READY, model_idx, None))
-        except (MemoryError, RuntimeError, ValueError):
+        except (MemoryError, RuntimeError, ValueError) as e:
             # paper §II.C.2: {-1, None, None} triggers system shutdown.  A
             # controller-initiated speculative spawn passes oom_sentinel=False
             # so a failed probe rejects ONE reconfig action instead of
             # failing every in-flight request (DESIGN.md §8).
             if oom_sentinel:
                 self.prediction_queue.put(Message(seg.OOM, None, None))
+            # the error's traceback holds the failed forward's frames and
+            # this one: clear the finished ones (their activations) and drop
+            # the partly moved tree, or a controller's retry would find card
+            # memory that nothing owns
+            traceback.clear_frames(e.__traceback__)
+            params = warm = None
+            self.release_device()
             raise
+
+    def release_device(self) -> None:
+        """Drop this worker's device tensors (parameters, frontend, pinned
+        ring slots) and return the card's cached blocks.  Only for a worker
+        whose threads have exited or never started."""
+        self.params = self.frontend = None
+        self._ring_t, self._ring = [], []
+        if self._cuda:
+            gc.collect()
+            torch.cuda.empty_cache()
 
     # ---- threads -------------------------------------------------------------
     def start(self):
@@ -387,6 +406,10 @@ class Worker:
         which fails every in-flight request and shuts the system down
         (§II.C.2 all-or-nothing semantics, still the default)."""
         try:
+            if self._cuda:
+                # a new thread's current device is card 0: name this
+                # worker's card before the stage enqueues anything
+                torch.cuda.set_device(self._device)
             fn()
         except BaseException as e:
             self.crash_cause = e

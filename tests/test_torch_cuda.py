@@ -403,6 +403,104 @@ def test_served_moe_and_cross_attention_ensemble_goes_through_the_kernels(
     assert all(launches.values()), launches
 
 
+def test_cuda_cells_split_the_card(dev):
+    """Two cells of one card: distinct names and keys, half the memory and
+    half the rates each, the same card behind both."""
+    from repro_torch.core import cuda_cells, cuda_devices
+    card = cuda_devices()[0]
+    cells = [c for c in cuda_cells(2) if c.torch_device == dev]
+    assert len(cells) == 2 and len({c.key() for c in cells}) == 2
+    assert len({c.name for c in cells}) == 2
+    for c in cells:
+        assert c.memory_bytes == card.memory_bytes // 2
+        assert c.peak_flops == card.peak_flops / 2
+        assert c.mem_bw == card.mem_bw / 2
+        assert c.name.endswith(card.name.split(":", 1)[1])
+
+
+def _tree_bytes(tree):
+    total = [0]
+
+    def add(t):
+        total[0] += t.numel() * t.element_size()
+        return t
+    kq.tree_map(add, tree)
+    return total[0]
+
+
+def _cells_system(dev, A):
+    """ENS4[:2] on two cells of the card, trees built on the host."""
+    import gc
+
+    from repro_torch.configs import ensemble
+    from repro_torch.core import AllocationMatrix, cuda_cells
+    from repro_torch.models import init_params
+    from repro_torch.serving import InferenceSystem
+    cfgs = ensemble("ENS4")[:2]
+    params = [init_params(c, seed=i, device="cpu")
+              for i, c in enumerate(cfgs)]
+    cells = [c for c in cuda_cells(2) if c.torch_device == dev]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return InferenceSystem(cfgs, params, AllocationMatrix(
+        cells, [c.name for c in cfgs], np.array(A)), max_seq=16,
+        segment_size=16, use_kernel=True), _tree_bytes(params[0])
+
+
+def test_spawn_and_drain_return_the_members_bytes(dev):
+    """A live spawn on the second cell adds at least member 0's tree to the
+    card; draining the old instance (wait=True) takes at least as much off,
+    and the spawned instance serves the same answers."""
+    import gc
+    X = np.random.default_rng(1).integers(0, 512, (24, 16)).astype(np.int32)
+    s, nbytes = _cells_system(dev, [[8, 8], [0, 0]])
+    with s:
+        Y = s.predict(X)
+        torch.cuda.synchronize(dev)
+        before = torch.cuda.memory_allocated(dev)
+        w = s.spawn_instance(1, 0, 8)
+        spawned = torch.cuda.memory_allocated(dev)
+        assert spawned - before >= nbytes
+        (old,) = [x for x in s.instances(0) if x is not w]
+        s.drain_instance(old, wait=True)
+        del old
+        gc.collect()
+        drained = torch.cuda.memory_allocated(dev)
+        assert spawned - drained >= nbytes
+        assert s.instances(0) == [w] and s.alloc.A[:, 0].tolist() == [0, 8]
+        np.testing.assert_allclose(s.predict(X), Y, atol=1e-5)
+
+
+def test_failed_spawn_leaves_nothing_behind(dev):
+    """A spawn that runs out of card memory raises, posts no global
+    sentinel (the system keeps serving) and frees what it had moved."""
+    import gc
+    X = np.random.default_rng(2).integers(0, 512, (8, 16)).astype(np.int32)
+    s, nbytes = _cells_system(dev, [[8, 8], [0, 0]])
+    with s:
+        Y = s.predict(X)
+        torch.cuda.synchronize(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated(dev)
+        total = torch.cuda.get_device_properties(dev).total_memory
+        # room for half of member 0's tree beyond what is held now
+        torch.cuda.set_per_process_memory_fraction(
+            (torch.cuda.memory_reserved(dev) + nbytes // 2) / total, dev)
+        failed = False
+        try:
+            s.spawn_instance(1, 0, 8)
+        except torch.cuda.OutOfMemoryError:
+            failed = True
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        assert failed
+        gc.collect()
+        assert torch.cuda.memory_allocated(dev) == before
+        assert len(s.instances(0)) == 1 and s.alloc.A[1, 0] == 0
+        np.testing.assert_array_equal(s.predict(X), Y)
+
+
 @pytest.mark.parametrize("name", ["qwen3-1.7b-reduced", "hymba-1.5b-reduced",
                                   "granite-moe-3b-a800m-reduced",
                                   "llama-3.2-vision-11b-reduced"])

@@ -1,4 +1,5 @@
 """The PyTorch port imports neither JAX nor anything of the JAX package."""
+import os
 import re
 import subprocess
 import sys
@@ -30,7 +31,15 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.models.moe", "repro_torch.core.memory",
               "repro_torch.core.worst_fit", "repro_torch.core.greedy",
               "repro_torch.core.bench", "repro_torch.core.optimizer",
-              "repro_torch.core.bbs"):
+              "repro_torch.core.bbs", "repro_torch.serving.client",
+              "repro_torch.serving.server", "repro_torch.serving.request_cache",
+              "repro_torch.serving.trace", "repro_torch.serving.control",
+              "repro_torch.serving.control.controller",
+              "repro_torch.serving.control.livebench",
+              "repro_torch.serving.control.overload",
+              "repro_torch.serving.control.stealing",
+              "repro_torch.serving.control.supervisor",
+              "repro_torch.launch", "repro_torch.launch.serve"):
         assert m in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -61,6 +70,21 @@ def test_the_card_is_never_replaced_by_the_cpu():
         return
     with pytest.raises(RuntimeError):
         cuda_devices()
+
+
+def test_cells_and_the_launcher_refuse_to_run_without_a_card(tmp_path):
+    from repro_torch.core import cuda_cells
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError):
+        cuda_cells(2)
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--bench",
+         "analytic", "--members", "1", "--port", "0", "--duration", "1"],
+        capture_output=True, text=True, timeout=300, cwd=tmp_path,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode != 0 and "serving" not in out.stdout
+    assert "no CUDA device" in out.stderr
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

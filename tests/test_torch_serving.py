@@ -218,16 +218,25 @@ def test_simulated_cell_serves_only_fake_workers(ens2):
 
 
 def test_unported_options_raise(ens2):
-    _, tcfgs, _, tparams = ens2
-    for kw in (dict(supervise=True), dict(fault_plan=object()),
-               dict(admission_budget=1 << 20)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_system(tcfgs, tparams, [[8, 8]], **kw)
-    with make_system(tcfgs, tparams, [[8, 8]], fake=True) as s:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            s.spawn_instance(0, 0, 8)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            s.drain_instance(s.workers[0])
+    """None of the control-plane options raises any more: supervision with
+    a fault plan, the admission budget, live spawn and drain all build and
+    serve, and the answers stay the JAX oracle's."""
+    from repro_torch.serving.faults import FaultPlan, FaultSpec
+    jcfgs, tcfgs, jparams, tparams = ens2
+    X = _X(24, seed=8)
+    fp = FaultPlan(FaultSpec(stage="sender", kind="raise", after=0,
+                             worker="w1.0"))
+    with make_system(tcfgs, tparams, [[8, 8], [8, 0]], supervise=True,
+                     fault_plan=fp, admission_budget=1 << 20,
+                     segment_size=8) as s:
+        np.testing.assert_allclose(s.predict(X), oracle(jcfgs, jparams, X),
+                                   atol=2e-5)
+        assert s.serving_counters().get("quarantines") == 1
+        w = s.spawn_instance(1, 0, 16)
+        s.drain_instance(s.instances(0)[0])
+        assert s.instances(0) == [w]
+        np.testing.assert_allclose(s.predict(X), oracle(jcfgs, jparams, X),
+                                   atol=2e-5)
 
 
 @pytest.fixture(scope="module")
