@@ -68,7 +68,26 @@ Phases, one JSON line each; any failed phase exits non-zero:
    torch system in Benchmark Mode, with its defaults: no kernels, the
    "mean" combine) under ``MemoBench``.  It prints both matrices, their
    rows/s, the matrices evaluated and the greedy's speedup over its start.
-7. ``control:qwen3``: qwen3-1.7b at full width in fp32 and the same
+7. ``train:qwen3``: qwen3-1.7b at full width (28 layers, vocab 151936)
+   trained for 8 steps from random weights on the byte tokenizer's
+   ``TextCorpus`` over a fixed text (the n-gram table would take 184.7 GB
+   at this vocabulary): 4 sequences of 4096 tokens a step in 2
+   microbatches, remat, no kernels (they have no backward), AdamW with 2
+   warmup steps.  Loss, gradient norm, lr and seconds per step, tokens/s
+   and the peak device GB; the first loss must be near its random-init
+   value, every loss and norm finite and the last loss lower by a margin.
+   ``train:ckpt``: the trained params through the port's checkpoint (the
+   JAX package's npz layout) into a temporary directory and back into a
+   fresh tree on the card, every leaf bit-equal, then a prefill of 512
+   tokens and 16 decode steps from the restored tree through the kernels
+   (decode attention, and flash over the prompt and what it generated),
+   held to the plain decode path and the flash forward;
+8. ``train:step``: qwen3 at full width and 2 layers, one step's loss and
+   every gradient in f32 against the same step with float64 parameters
+   and a float64 cross-entropy, the same f32 step with TF32 products as a
+   control (recorded, not held), and a step at ``accum_steps=2`` against
+   one at 1;
+9. ``control:qwen3``: qwen3-1.7b at full width in fp32 and the same
    widths at 14 layers in int8, trees built on the host, on two cells of
    this card (``cuda_cells(2)``, allocation [[16, 8], [16, 0]]: member 0
    has an instance on each cell), ``combine="pallas"``, ``use_kernel=True``,
@@ -86,7 +105,7 @@ Phases, one JSON line each; any failed phase exits non-zero:
    members' plain forwards on the card as in the pair phase, and the
    launch counts must show flash per attention layer per chunk, both
    combine kernels and no plain version;
-8. ``brownout:qwen3``: a second system on the same host trees, one cell,
+10. ``brownout:qwen3``: a second system on the same host trees, one cell,
    ``combine="weighted"``, member 0 slowed by a repeating ``slow`` fault,
    an admission budget of one burst's bytes and a ``LiveBench`` attached
    (``set_profiler``), warmed by one burst.  With the next burst in
@@ -95,7 +114,17 @@ Phases, one JSON line each; any failed phase exits non-zero:
    after it is demoted in flight: those requests complete with quality
    under 1, their forgiven rows held to the int8 member's plain forward
    alone and the others to the full combine;
-9. ``launch:ENS4``: ``python -m repro_torch.launch.serve --ensemble ENS4
+11. ``sim:qwen3``: a third system on the host trees, one cell, [[16, 8]],
+   ``combine="pallas"``, a ``LiveBench`` attached and warmed by one burst;
+   the offered trace of the next 25 bursts of 8 requests of 8 rows (200
+   requests, each burst sent as the one before it completes, every
+   answer held to the plain forwards) is recorded, a ``ServiceModel`` is
+   fitted from the ``LiveBench`` snapshot, and the trace is replayed twice
+   through the port's ``SimSystem`` on the same allocation: both replays
+   identical, every request completed, and simulated req/s, p50 and p99
+   beside the measured (the ratio is recorded, not held: ``LiveBench``
+   prices a backlog on the card);
+12. ``launch:ENS4``: ``python -m repro_torch.launch.serve --ensemble ENS4
    --cells 2 --bench analytic --port 0 --duration 20 --reconfig
    --brownout`` as a subprocess on this card: one request answered with
    finite Y of the right shape, ``GET /metrics`` with the health gauges
@@ -783,12 +812,13 @@ def tree_bytes(tree) -> int:
     return total[0]
 
 
-def serve(system, X, n_req: int, rows: int):
+def serve(system, X, n_req: int, rows: int, t0=None):
     """Send ``n_req`` concurrent requests of ``rows`` rows; returns (Y,
-    wall seconds, per-request latency in ms).  Completion times are the
-    accumulator's own (``latency_s``, taken as it finishes a request)."""
+    wall seconds from ``t0`` (default: now) to the last completion,
+    per-request latency in ms).  Completion times are the accumulator's
+    own (``latency_s``, taken as it finishes a request)."""
     import numpy as np
-    t0 = time.perf_counter()
+    t0 = time.perf_counter() if t0 is None else t0
     handles = [system.predict_async(X[i * rows:(i + 1) * rows])
                for i in range(n_req)]
     try:
@@ -1267,12 +1297,13 @@ PROFILE_STEPS = 8
 
 
 def generate(torch, params, cfg, prompt, max_len: int, *, use_kernel: bool,
-             int8_kv: bool = False, forced=None, frontend=None) -> dict:
-    """prefill + GEN_STEPS decode steps, greedy over the real vocabulary
-    unless ``forced`` (B, GEN_STEPS) gives the tokens.  Returns the logits
-    of the prefill and of every step (GEN_STEPS + 1, B, V), the tokens fed,
-    the prefill's seconds, each step's ms (CUDA events) and the decode
-    wall time, and the cache."""
+             int8_kv: bool = False, forced=None, frontend=None,
+             steps: int = GEN_STEPS) -> dict:
+    """prefill + ``steps`` decode steps, greedy over the real vocabulary
+    unless ``forced`` (B, steps) gives the tokens.  Returns the logits of
+    the prefill and of every step (steps + 1, B, V), the tokens fed, the
+    prefill's seconds, each step's ms (CUDA events) and the decode wall
+    time, and the cache."""
     from repro_torch.models import decode_step, prefill
     V, s0 = cfg.vocab_size, prompt.shape[1]
     with torch.no_grad():
@@ -1284,10 +1315,10 @@ def generate(torch, params, cfg, prompt, max_len: int, *, use_kernel: bool,
         prefill_s = time.perf_counter() - t0
         logits, toks = [lg[:, :V]], []
         ev = [torch.cuda.Event(enable_timing=True)
-              for _ in range(GEN_STEPS + 1)]
+              for _ in range(steps + 1)]
         t0 = time.perf_counter()
         ev[0].record()
-        for t in range(GEN_STEPS):
+        for t in range(steps):
             tok = (forced[:, t:t + 1] if forced is not None else
                    logits[-1].argmax(-1, keepdim=True).int())
             toks.append(tok)
@@ -1300,7 +1331,7 @@ def generate(torch, params, cfg, prompt, max_len: int, *, use_kernel: bool,
     return {"logits": torch.stack(logits), "tokens": torch.cat(toks, 1),
             "prefill_s": prefill_s, "wall_s": wall, "cache": cache,
             "step_ms": [ev[i].elapsed_time(ev[i + 1])
-                        for i in range(GEN_STEPS)]}
+                        for i in range(steps)]}
 
 
 def profile_decode(torch, params, cfg, cache, token, pos: int,
@@ -1508,6 +1539,331 @@ def phase_alloc(torch, seed: int, smi: str) -> dict:
     return launches
 
 
+TRAIN_MODEL = "qwen3-1.7b"
+TRAIN_SEQ = 4096                 # train_4k's sequence length
+TRAIN_BATCH, TRAIN_ACCUM = 4, 2  # microbatch 2: 16384 tokens a step
+TRAIN_STEPS = 8
+TRAIN_FIRST_LOSS_TOL = 0.5       # the first loss within this of its
+                                 # expected value at random init
+TRAIN_MIN_DROP = 2.0             # the last loss below the first by this
+TRAIN_TEXT = (                   # the byte tokenizer's corpus: the n-gram
+    "the quick brown fox jumps over the lazy dog. "     # table would need
+    "pack my box with five dozen liquor jugs. "          # 184.7 GB at
+    "how vexingly quick daft zebras jump! "              # 151936 classes
+    "sphinx of black quartz, judge my vow. ") * 64
+CKPT_PROMPT, CKPT_STEPS = 512, 16
+STEP_LAYERS, STEP_BATCH, STEP_SEQ = 2, 2, 512
+STEP_LOSS_TOL = 1e-4             # |loss f32 - loss f64|
+STEP_GRAD_TOL = 1e-4             # per leaf, x max |g| of the f64 step
+ACCUM_TOL = 1e-4                 # tests/test_training.py's accum bounds
+
+
+def train_corpus(cfg, seq: int, seed: int):
+    from repro_torch.data.tokenizer import TextCorpus
+    return TextCorpus(TRAIN_TEXT, seq, seed=seed, vocab_size=cfg.vocab_size)
+
+
+def phase_train(torch, seed: int, smi: str, profile: bool) -> dict:
+    """``train:qwen3``, then ``train:ckpt`` on its trained params (see the
+    module docstring).  Returns the kernel launches of the checkpoint's
+    generation (training launches none)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import _INIT_SCALE
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import make_train_step
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config(TRAIN_MODEL)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(cfg, seed, dev)
+    corpus = train_corpus(cfg, TRAIN_SEQ, seed)
+    ocfg = opt.AdamWConfig(warmup_steps=2, total_steps=TRAIN_STEPS)
+    step = make_train_step(cfg, ocfg, use_kernel=False, remat=True,
+                           accum_steps=TRAIN_ACCUM)
+    state = opt.init(params)
+    ops.reset_counts()
+    history = []
+    for i in range(TRAIN_STEPS):
+        batch = corpus.batch(TRAIN_BATCH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        m = {k: float(v) for k, v in m.items()}     # waits for the step
+        torch.cuda.synchronize()
+        m["s"] = time.perf_counter() - t0
+        history.append(m)
+    launches, plain = ops.kernel_launches(), ops.plain_calls()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        batch = corpus.batch(TRAIN_BATCH)
+        torch.cuda.synchronize()
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, state, _ = step(params, state, batch)
+            torch.cuda.synchronize()
+            window = time.perf_counter() - t0
+        emit({"phase": f"profile:train:{TRAIN_MODEL}",
+              **device_time(prof, window)})
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    losses = [m["loss"] for m in history]
+    # random init: the tied head's logits are normal with variance
+    # INIT_SCALE² · d over a unit-rms hidden state, so the expected first
+    # loss is ln(V) + σ²/2 (12.34 at qwen3's d 2048), not ln(V) (11.93)
+    sigma2 = _INIT_SCALE ** 2 * cfg.d_model
+    first_want = math.log(cfg.vocab_size) + sigma2 / 2
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+               for m in history):
+        fail(f"train:qwen3: a loss or gradient norm is not finite: "
+             f"{history}")
+    if abs(losses[0] - first_want) > TRAIN_FIRST_LOSS_TOL:
+        fail(f"train:qwen3: first loss {losses[0]:.4f}, not within "
+             f"{TRAIN_FIRST_LOSS_TOL} of ln({cfg.vocab_size}) + "
+             f"{sigma2 / 2:.4f} = {first_want:.4f}")
+    if not losses[-1] < losses[0] - TRAIN_MIN_DROP:
+        fail(f"train:qwen3: the loss fell from {losses[0]:.4f} to "
+             f"{losses[-1]:.4f}, less than {TRAIN_MIN_DROP}")
+    if any(launches.values()) or plain.get("flash_attention") or \
+            plain.get("ssd_scan"):
+        fail(f"train:qwen3: kernel launches {launches} or plain kernel "
+             f"calls {plain} in training (use_kernel=False)")
+    step_s = float(np.median([m["s"] for m in history[1:]]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    emit({"phase": f"train:{TRAIN_MODEL}", "ok": True, "card": smi,
+          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab_size, "params": cfg.param_count(),
+          "params_gb": tree_bytes(params) / 1e9, "data": "TextCorpus",
+          "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+          "accum_steps": TRAIN_ACCUM, "tokens_per_step": tokens,
+          "remat": True, "use_kernel": False, "steps": TRAIN_STEPS,
+          "loss": losses, "grad_norm": [m["grad_norm"] for m in history],
+          "lr": [m["lr"] for m in history],
+          "step_s": [m["s"] for m in history], "step_s_median": step_s,
+          "first_step_s": history[0]["s"], "tokens_per_s": tokens / step_s,
+          "peak_device_gb": peak_gb,
+          "first_loss_expected": first_want,
+          "first_loss_minus_ln_vocab": losses[0] - math.log(cfg.vocab_size),
+          "loss_drop": losses[0] - losses[-1],
+          "min_drop_held": TRAIN_MIN_DROP, "launches": launches})
+    try:
+        return phase_ckpt(torch, cfg, params, corpus, seed, smi)
+    finally:
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_ckpt(torch, cfg, params, corpus, seed: int, smi: str) -> dict:
+    """``train:ckpt``: the trained params through the port's checkpoint
+    and back into a fresh tree on the card, then generation from the
+    restored tree through the kernels, held to the plain paths."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import hidden, logits_from_hidden
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import tree as T
+
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = ckpt.save(tmp, TRAIN_STEPS, params)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(os.path.join(path, "arrays.npz"))
+        fresh = init_params(cfg, seed + 1, dev)
+        t0 = time.perf_counter()
+        restored = ckpt.restore(tmp, fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del fresh
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    unequal = [k for (k, a), b in zip(T.flatten_with_paths(params),
+                                      T.leaves(restored))
+               if not (a.dtype == b.dtype and a.device == b.device
+                       and torch.equal(a, b))]
+    if unequal:
+        fail(f"train:ckpt: leaves not bit-equal after the round trip: "
+             f"{unequal}")
+    keys = [k for k, _ in T.flatten_with_paths(restored)]
+
+    prompt = torch.from_numpy(
+        corpus.batch(GEN_BATCH)["tokens"][:, :CKPT_PROMPT]).to(dev)
+    max_len = CKPT_PROMPT + CKPT_STEPS
+    ops.reset_counts()
+    run = generate(torch, restored, cfg, prompt, max_len, use_kernel=True,
+                   steps=CKPT_STEPS)
+    del run["cache"]
+    tokens = run["tokens"]
+    with torch.no_grad():      # flash over the prompt and what it generated
+        x = hidden(restored, cfg, torch.cat([prompt, tokens], 1),
+                   use_kernel=True)[:, CKPT_PROMPT - 1:max_len]
+        want = logits_from_hidden(restored, cfg, x)[..., :cfg.vocab_size]
+        want = want.transpose(0, 1)
+        del x
+    launches, plain = ops.kernel_launches(), ops.plain_calls()
+    plain_run = generate(torch, restored, cfg, prompt, max_len,
+                         use_kernel=False, forced=tokens, steps=CKPT_STEPS)
+    del plain_run["cache"]
+    logits = run["logits"]
+    errors = {}
+    err, scale = max_err(torch, logits, plain_run["logits"])
+    errors["plain_decode"] = {"max_abs_err": err, "tol": 1e-4 * scale}
+    err, scale = max_err(torch, logits, want)
+    errors["flash_forward"] = {"max_abs_err": err, "tol": 1e-3 * scale}
+    sample = tok.decode(tokens[0].tolist())
+    del restored, logits, want, plain_run, run, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    for what, e in errors.items():
+        if not e["max_abs_err"] <= e["tol"]:
+            fail(f"train:ckpt: logits vs {what}: {e['max_abs_err']:.3g} "
+                 f"over tolerance {e['tol']:.3g}")
+    attn, _ = layer_counts(cfg)
+    want_launches = {"decode_attention": attn * CKPT_STEPS,
+                     "flash_attention": attn, "ssd_scan": 0,
+                     "ensemble_combine": 0, "ensemble_combine_quant": 0}
+    if launches != want_launches or any(plain.values()):
+        fail(f"train:ckpt: launches {launches} (expected {want_launches}), "
+             f"plain calls {plain}")
+    emit({"phase": "train:ckpt", "ok": True, "card": smi,
+          "leaves": len(keys), "keys_head": keys[:4],
+          "bytes_written": nbytes, "save_s": save_s,
+          "restore_s": restore_s, "bit_equal": True,
+          "generate": {"batch": GEN_BATCH, "prompt": CKPT_PROMPT,
+                       "steps": CKPT_STEPS, "use_kernel": True,
+                       "sample_row0": sample},
+          "errors": errors, "launches": launches,
+          "expected_launches": want_launches, "plain_calls": plain})
+    return launches
+
+
+def loss_and_grads_f64(torch, params, cfg, batch):
+    """The reference of ``train:step``: ``loss_fn``'s loss (vocab padding
+    and label -100 masked) with the cross-entropy in float64, and its
+    gradient with respect to every leaf of the float64 ``params``."""
+    import numpy as np
+    from repro_torch.models import forward
+    from repro_torch.training import tree as T
+    leaves = T.leaves(params)
+    dev = leaves[0].device
+    tokens = torch.from_numpy(np.asarray(batch["tokens"])).to(dev)
+    labels = torch.from_numpy(np.asarray(batch["labels"])).to(dev)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        logits, aux = forward(params, cfg, tokens, remat=True)
+        logp = torch.log_softmax(logits[..., :cfg.vocab_size].double(), -1)
+        mask = labels >= 0
+        nll = -torch.gather(logp, -1, labels.clamp(min=0).long()[..., None])
+        ce = (nll[..., 0] * mask).sum() / mask.sum().clamp(min=1)
+        loss = ce + aux.double()
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    return float(loss.detach()), list(grads)
+
+
+def phase_train_step(torch, seed: int, smi: str) -> None:
+    """``train:step``: qwen3 at full width and STEP_LAYERS layers, one
+    step's loss and gradients in f32 against the same step with float64
+    params and a float64 cross-entropy (f64 matrix products; the
+    forward's own f32 casts in the norms, RoPE and attention stay), then
+    accum_steps=2 against 1.  A control: the same f32 step with TF32
+    matrix products, recorded beside the tolerance, not held."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import tree as T
+    from repro_torch.training.train_loop import (loss_and_grads,
+                                                 make_train_step)
+
+    dev = torch.device("cuda", 0)
+    cfg = cut(get_config(TRAIN_MODEL), STEP_LAYERS)
+    p32 = init_params(cfg, seed, dev)
+    p64 = T.unflatten(p32, [t.double() for t in T.leaves(p32)])
+    batch = train_corpus(cfg, STEP_SEQ, seed).batch(STEP_BATCH)
+    l64, g64 = loss_and_grads_f64(torch, p64, cfg, batch)
+    del p64
+
+    def held(loss, g):
+        errs = {}
+        for (k, a), b in zip(T.flatten_with_paths(g), g64):
+            errs[k] = {"max_abs_err": (a.double() - b).abs().max().item(),
+                       "tol": STEP_GRAD_TOL * b.abs().max().item()}
+        return abs(float(loss) - l64), errs
+
+    l32, _, g32 = loss_and_grads(p32, cfg, batch, remat=True)
+    loss_err, grads = held(l32, g32)
+    del g32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ltf, _, gtf = loss_and_grads(p32, cfg, batch, remat=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    tf32_loss_err, tf32 = held(ltf, gtf)
+    del gtf, g64
+    # accumulation over 2 microbatches against one batch, one step each
+    ocfg = opt.AdamWConfig()
+    runs = {}
+    for accum in (1, 2):
+        p = T.unflatten(p32, [t.clone() for t in T.leaves(p32)])
+        p, _, m = make_train_step(cfg, ocfg, remat=True, accum_steps=accum)(
+            p, opt.init(p), batch)
+        runs[accum] = (p, float(m["ce"]))
+    accum_ce = abs(runs[1][1] - runs[2][1])
+    accum_params = max((a - b).abs().max().item() for a, b in
+                       zip(T.leaves(runs[1][0]), T.leaves(runs[2][0])))
+    del runs, p32, p
+    gc.collect()
+    torch.cuda.empty_cache()
+    bad = {k: g for k, g in grads.items()
+           if not g["max_abs_err"] <= g["tol"]}
+    if loss_err > STEP_LOSS_TOL or bad:
+        fail(f"train:step: f32 vs f64 loss error {loss_err:.3g} (tol "
+             f"{STEP_LOSS_TOL}), gradient leaves over tolerance: {bad}")
+    if not (accum_ce < ACCUM_TOL and accum_params < ACCUM_TOL):
+        fail(f"train:step: accum_steps=2 vs 1: ce {accum_ce:.3g}, params "
+             f"{accum_params:.3g} (bound {ACCUM_TOL})")
+
+    def worst(errs):
+        return max(g["max_abs_err"] / g["tol"] for g in errs.values())
+
+    emit({"phase": "train:step", "ok": True, "card": smi,
+          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab_size, "batch": STEP_BATCH, "seq": STEP_SEQ,
+          "loss_f32": float(l32), "loss_f64": l64,
+          "loss_err": loss_err, "loss_tol": STEP_LOSS_TOL,
+          "grad_tol": f"{STEP_GRAD_TOL} x max|g| of the leaf (f64)",
+          "grads": grads, "worst_err_over_tol": worst(grads),
+          "tf32_control": {
+              "loss_err": tf32_loss_err,
+              "worst_err_over_tol": worst(tf32),
+              "leaves_over_tol": sorted(
+                  k for k, g in tf32.items()
+                  if not g["max_abs_err"] <= g["tol"]),
+              "leaves": len(tf32)},
+          "accum": {"ce_err": accum_ce, "max_param_delta": accum_params,
+                    "bound": ACCUM_TOL}})
+
+
 CONTROL_SEQ, CONTROL_SEG = 256, 32
 CONTROL_REQ, CONTROL_ROWS = 4, 40       # the pair phase's traffic
 HTTP_REQ, HTTP_ROWS = 4, 8              # JSON floats: ~5 MB a row of qwen3
@@ -1515,6 +1871,9 @@ CONTROL_ALLOC = [[16, 8], [16, 0]]      # member 0 on both cells: a sibling
 REBATCH_ALLOC = [[16, 8], [8, 0]]       # member 0 on cell 1 at batch 8
 SLOW_CHUNK_S = 0.05                     # the brownout drill's slow member 0
 LAUNCH_DURATION_S = 20
+SIM_BURSTS, SIM_REQ, SIM_ROWS = 25, 8, 8  # sim:qwen3's recorded trace: 200
+                                        # requests, each burst sent as the
+                                        # one before it completes
 
 
 def latency_summary(lat_ms) -> dict:
@@ -1849,7 +2208,7 @@ def phase_control(torch, seed: int, smi: str) -> dict:
         httpd.shutdown()
         batcher.stop()
         system.shutdown()
-    del system, ctl, handles, params, httpd, batcher
+    del system, ctl, handles, httpd, batcher
     gc.collect()
     torch.cuda.empty_cache()
     ra = refused["body"].get("retry_after_s")
@@ -1905,7 +2264,100 @@ def phase_control(torch, seed: int, smi: str) -> dict:
           "plain_calls": plain})
     for k, v in launches.items():
         total[k] = total.get(k, 0) + v
+
+    # ---- C. sim:qwen3 ------------------------------------------------------
+    for k, v in phase_sim(torch, cfgs, params, X, all_rows, ref,
+                          smi).items():
+        total[k] = total.get(k, 0) + v
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     return total
+
+
+def phase_sim(torch, cfgs, params, X, rows, ref, smi: str) -> dict:
+    """``sim:qwen3``: the offered trace of SIM_BURSTS bursts of SIM_REQ
+    requests, recorded on the card, replayed twice through the port's
+    simulator with a ``ServiceModel`` fitted from the ``LiveBench`` of the
+    same run.  Returns the served runs' kernel launches."""
+    import numpy as np
+    from repro_torch.core import AllocationMatrix, cuda_devices
+    from repro_torch.kernels import ops
+    from repro_torch.serving import InferenceSystem
+    from repro_torch.serving.control import LiveBench
+    from repro_torch.serving.sim import ServiceModel, SimSystem
+    from repro_torch.serving.trace import TraceRecorder
+
+    alloc = AllocationMatrix(cuda_devices()[:1], [c.name for c in cfgs],
+                             np.array([[16, 8]]))
+    system = InferenceSystem(
+        cfgs, params, alloc, combine="pallas", use_kernel=True,
+        max_seq=CONTROL_SEQ, segment_size=CONTROL_SEG,
+        member_dtypes=["fp32", "int8"])
+    rec = TraceRecorder()
+    n_burst = SIM_REQ * SIM_ROWS
+    checks, lat = {}, []
+    try:
+        live = LiveBench(cfgs, seq=CONTROL_SEQ)
+        system.set_profiler(live)
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        serve(system, X, CONTROL_REQ, CONTROL_ROWS)     # warms the bench
+        system.trace_recorder = rec
+        t0 = time.perf_counter()
+        for b in range(SIM_BURSTS):
+            sel = rows[(np.arange(n_burst) + b * SIM_ROWS) % len(rows)]
+            Y, wall, lat_b = serve(system, X[sel], SIM_REQ, SIM_ROWS, t0=t0)
+            lat += lat_b
+            c = served_checks("sim:qwen3", Y, sel, ref, f"burst {b}")
+            checks["max_abs_err"] = max(checks.get("max_abs_err", 0.0),
+                                        c["max_abs_err"])
+            checks["int8_flips"] = (checks.get("int8_flips", 0)
+                                    + c["int8_flips"])
+        system.trace_recorder = None
+        launches, plain = ops.kernel_launches(), ops.plain_calls()
+        snap = live.snapshot()
+    finally:
+        system.shutdown()
+    del system, Y
+    gc.collect()
+    torch.cuda.empty_cache()
+    minima = launches_hold("sim:qwen3", cfgs, [16, 8], len(X), launches,
+                           plain, combine_kernels=True)
+    trace = rec.events()
+    n_req = SIM_BURSTS * SIM_REQ
+    svc = ServiceModel.from_livebench(snap)
+    replays = [SimSystem.from_alloc(alloc, svc, segment_size=CONTROL_SEG,
+                                    record_events=True).run(trace)
+               for _ in range(2)]
+    sim = replays[0].results()
+    if replays[1].results() != sim or \
+            replays[1].event_log != replays[0].event_log:
+        fail("sim:qwen3: two replays of one trace differ")
+    if sim["completed"] != len(trace) or len(trace) != n_req:
+        fail(f"sim:qwen3: {sim['completed']} of {len(trace)} recorded "
+             f"requests completed in the simulation ({n_req} sent)")
+    measured = {"throughput_req_per_s": n_req / wall,
+                "p50_ms": float(np.percentile(lat, 50)),
+                "p99_ms": float(np.percentile(lat, 99)), "wall_s": wall}
+    ratios = {k: sim[k] / measured[k]
+              for k in ("throughput_req_per_s", "p50_ms", "p99_ms")}
+    emit({"phase": "sim:qwen3", "ok": True, "card": smi,
+          "allocation": [[16, 8]], "segment_size": CONTROL_SEG,
+          "trace": {"requests": len(trace), "bursts": SIM_BURSTS,
+                    "rows": sum(e.rows for e in trace),
+                    "span_s": trace[-1].t - trace[0].t},
+          "service_model": snap["latency_ewma_s"],
+          "measured": measured,
+          "simulated": {k: sim[k] for k in (
+              "throughput_req_per_s", "p50_ms", "p99_ms", "makespan_s",
+              "completed", "offered")},
+          "sim_over_measured": ratios, "replays_identical": True,
+          "events": len(replays[0].event_log),
+          "max_abs_err": checks["max_abs_err"], "checks": checks,
+          "launches": launches, "launch_minima": minima,
+          "plain_calls": plain})
+    return launches
 
 
 def phase_launch(smi: str) -> None:
@@ -1969,10 +2421,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="serve each pair's requests a second time, and run "
-                         "a few more decode steps of each generation phase, "
-                         "under torch.profiler and print device time by "
-                         "kernel")
+                    help="serve each pair's requests a second time, run "
+                         "a few more decode steps of each generation phase "
+                         "and one more training step, under torch.profiler, "
+                         "and print device time by kernel")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script",
@@ -2035,7 +2487,14 @@ def main(argv=None) -> int:
     for k, v in phase_alloc(torch, args.seed, smi).items():
         launches[k] = launches.get(k, 0) + v
 
-    # 7-9. the front door and the control plane, then the serve launcher
+    # 7-8. training at full width, its checkpoint served; a train step
+    # held to float64
+    for k, v in phase_train(torch, args.seed, smi, args.profile).items():
+        launches[k] = launches.get(k, 0) + v
+    phase_train_step(torch, args.seed, smi)
+
+    # 9-12. the front door and the control plane, the simulator, then the
+    # serve launcher
     for k, v in phase_control(torch, args.seed, smi).items():
         launches[k] = launches.get(k, 0) + v
     phase_launch(smi)

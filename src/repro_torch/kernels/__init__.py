@@ -4,7 +4,9 @@ tensor's device (``ops.py``)."""
 from __future__ import annotations
 
 import threading
-from typing import Dict
+from typing import Dict, Optional
+
+import torch
 
 
 class Counter:
@@ -27,3 +29,17 @@ class Counter:
     def snapshot(self) -> Dict[str, int]:
         with self._lock:
             return dict(self._counts)
+
+
+def refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise where autograd would record a kernel call.  The JAX package has
+    no backward for any of its Pallas kernels (``jax.grad`` through one
+    fails), and a kernel's output written through ``ctypes`` has no
+    ``grad_fn``, so a loss built on it would silently give its inputs no
+    gradient.  Called before the CPU/CUDA dispatch, so both routes refuse
+    alike."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward (nor has the JAX package's "
+            f"Pallas kernel); train with use_kernel=False")

@@ -14,7 +14,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import Counter, _build, ref
+from repro_torch.kernels import Counter, _build, ref, refuse_grad
 
 launches = Counter("decode_attention")
 
@@ -95,6 +95,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid: torch.Tensor) -> torch.Tensor:
     """q: (B,1,H,hd) pre-scaled, k/v: (B,L,KV,hd), valid: (L,) bool ->
     (B,1,H,hd) in q's dtype; head h reads kv head h // (H/KV)."""
+    refuse_grad("decode_attention", q, k, v)
     _check(q, k, v, valid)
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, valid, scale=1.0)

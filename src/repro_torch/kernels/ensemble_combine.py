@@ -17,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import Counter, _build, ref
+from repro_torch.kernels import Counter, _build, ref, refuse_grad
 
 launches = Counter("ensemble_combine", "ensemble_combine_quant")
 
@@ -60,6 +60,7 @@ def ensemble_combine(preds: torch.Tensor, weights: torch.Tensor,
                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """preds (M, seg, C), weights (M,), optional partial (seg, C), all f32
     -> (seg, C) f32."""
+    refuse_grad("ensemble_combine", preds, weights, partial)
     if preds.dim() != 3 or weights.shape != (preds.shape[0],):
         raise ValueError(f"ensemble_combine: preds {tuple(preds.shape)}, "
                          f"weights {tuple(weights.shape)}")
@@ -96,6 +97,7 @@ def ensemble_combine_quant(partial: torch.Tensor, q: torch.Tensor,
                            out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """partial (seg, C) f32, q (M, seg, C) int8/e4m3, scales (M, seg) f32,
     weights (M,) f32 -> (seg, C) f32."""
+    refuse_grad("ensemble_combine_quant", partial, q, scales, weights)
     if q.dim() != 3:
         raise ValueError(f"ensemble_combine_quant: q {tuple(q.shape)}")
     m, seg, c = q.shape

@@ -10,7 +10,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import Counter, _build, ref
+from repro_torch.kernels import Counter, _build, ref, refuse_grad
 
 launches = Counter("flash_attention")
 
@@ -42,6 +42,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: (B,S,H,hd) pre-scaled, k/v: (B,S,KV,hd) -> (B,S,H,hd) in q's
     dtype; head h reads kv head h // (H/KV)."""
+    refuse_grad("flash_attention", q, k, v)
     _check(q, k, v)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,

@@ -18,7 +18,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import Counter, _build, ref
+from repro_torch.kernels import Counter, _build, ref, refuse_grad
 
 launches = Counter("ssd_scan")
 
@@ -123,6 +123,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              chunk: int = 64) -> torch.Tensor:
     """x: (B,S,H,P), dt: (B,S,H) post-softplus, A: (H,) negative,
     bmat/cmat: (B,S,N), all f32 -> y (B,S,H,P) f32."""
+    refuse_grad("ssd_scan", x, dt, A, bmat, cmat)
     _check(x, dt, A, bmat, cmat, chunk)
     if x.device.type == "cpu":
         return ref.ssd_scan_ref(x, dt, A, bmat, cmat, chunk=chunk)

@@ -19,7 +19,8 @@ MoE layer (``models.moe``), for the full-sequence forward and for generation
 Public API:
     param_shapes(cfg)                                    -> tree of shapes
     init_params(cfg, seed, device="cuda")                -> parameter tree
-    forward(params, cfg, tokens, frontend, use_kernel=)  -> (logits, aux_loss)
+    forward(params, cfg, tokens, frontend, use_kernel=, remat=)
+                                                         -> (logits, aux_loss)
     hidden(params, cfg, tokens, frontend, use_kernel=)   -> last hidden states
     logits_from_hidden(params, cfg, x)                   -> logits
     prefill(params, cfg, tokens, max_len, frontend, ...) -> (logits, cache)
@@ -31,6 +32,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ATTN, CROSS, HYBRID, SSM, SWA, ModelConfig
 from repro_torch.kernels.quant import (dequantize, dequantize_kv, leaf,
@@ -200,17 +202,35 @@ def _layer_params(params, i: int, r: int):
     return {name: leaf(node, r) for name, node in params["layers"][i].items()}
 
 
+def _unit(params, cfg: ModelConfig, r: int, x, aux, positions, frontend,
+          use_kernel: bool):
+    """Repeat ``r`` of the pattern unit (``cfg.pattern``'s layers) -> (x,
+    aux plus the unit's aux losses), the JAX package's scan body."""
+    for i, kind in enumerate(cfg.pattern):
+        x, a = _apply_layer(cfg, kind, _layer_params(params, i, r), x,
+                            positions, frontend, use_kernel)
+        aux = aux + a
+    return x, aux
+
+
 def _layers(params, cfg: ModelConfig, tokens: torch.Tensor, frontend,
-            use_kernel: bool):
-    """(hidden states after the last layer, the summed aux loss)."""
+            use_kernel: bool, remat: bool = False):
+    """(hidden states after the last layer, the summed aux loss).  With
+    ``remat`` each unit is checkpointed, as the JAX package's
+    ``jax.checkpoint(unit_body)`` does: only the units' inputs are saved for
+    the backward, which runs each unit's forward again.  (The JAX package's
+    ``"dots"`` policy, set through its ``runtime_flags``, is not ported.)"""
     x = _embed(params, cfg, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for r in range(cfg.repeats):
-        for i, kind in enumerate(cfg.pattern):
-            x, a = _apply_layer(cfg, kind, _layer_params(params, i, r), x,
-                                positions, frontend, use_kernel)
-            aux = aux + a
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                _unit, params, cfg, r, x, aux, positions, frontend,
+                use_kernel, use_reentrant=False)
+        else:
+            x, aux = _unit(params, cfg, r, x, aux, positions, frontend,
+                           use_kernel)
     return x, aux
 
 
@@ -232,10 +252,12 @@ def logits_from_hidden(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tenso
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             frontend: Optional[torch.Tensor] = None, *,
-            use_kernel: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+            use_kernel: bool = False,
+            remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B,S) int -> (logits (B,S,Vpad), aux_loss), the aux loss the
-    sum of the MoE layers' load-balance losses (0 without MoE layers)."""
-    x, aux = _layers(params, cfg, tokens, frontend, use_kernel)
+    sum of the MoE layers' load-balance losses (0 without MoE layers).
+    ``remat`` recomputes each pattern unit in the backward (training)."""
+    x, aux = _layers(params, cfg, tokens, frontend, use_kernel, remat)
     return logits_from_hidden(params, cfg, x), aux
 
 

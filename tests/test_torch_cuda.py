@@ -538,3 +538,84 @@ def test_generation_goes_through_the_kernels(dev, name):
     assert launches["flash_attention"] == 0
     tol = 1e-4 * max(1.0, want.abs().max().item())
     torch.testing.assert_close(got, want, atol=tol, rtol=0)
+
+
+def test_every_wrapper_refuses_grad_on_the_card(dev):
+    """The CUDA route refuses to record a kernel call, as the CPU route and
+    the JAX package do: the kernels' outputs have no grad_fn."""
+    q = _randn(dev, 1, 1, 8, 2, 16).requires_grad_(True)
+    k, v = _randn(dev, 2, 1, 8, 1, 16), _randn(dev, 3, 1, 8, 1, 16)
+    x, dt, A, bm, cm = _ssd_inputs(dev, 1, 16, 2, 8, 16)
+    P = _randn(dev, 4, 2, 3, 5).requires_grad_(True)
+    calls = {
+        "flash_attention": lambda: fa.flash_attention(q, k, v),
+        "decode_attention": lambda: dec.decode_attention(
+            q[:, :1].detach().requires_grad_(True), k, v,
+            torch.ones(8, dtype=torch.bool, device=dev)),
+        "ssd_scan": lambda: ssd.ssd_scan(x.requires_grad_(True), dt, A, bm,
+                                         cm, chunk=16),
+        "ensemble_combine": lambda: ec.ensemble_combine(
+            P, torch.ones(2, device=dev)),
+        "ensemble_combine_quant": lambda: ec.ensemble_combine_quant(
+            P[0], torch.ones((2, 3, 5), dtype=torch.int8, device=dev),
+            torch.ones((2, 3), device=dev), torch.ones(2, device=dev)),
+    }
+    before = ops.kernel_launches()
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name}: the kernel has no "
+                                               "backward"):
+            call()
+    assert ops.kernel_launches() == before     # refused before any launch
+
+
+@pytest.mark.parametrize("name", ["qwen3-1.7b-reduced", "hymba-1.5b-reduced"])
+def test_train_step_on_the_card_matches_the_cpu(dev, name):
+    """A train step (remat, accumulation over 2 microbatches) on the card
+    against the same step of the port on the CPU, from the same params and
+    batch: the loss and every gradient leaf, then the step itself."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import tree as T
+    from repro_torch.training.train_loop import loss_and_grads, make_train_step
+    cfg = get_config(name)
+    host = init_params(cfg, seed=0, device="cpu")
+    card = T.unflatten(host, [t.to(dev) for t in T.leaves(host)])
+    batch = SyntheticLM(cfg.vocab_size, 32, seed=0).batch(4)
+    ops.reset_counts()
+    lc, _, gc_ = loss_and_grads(card, cfg, batch, remat=True, accum_steps=2)
+    lh, _, gh = loss_and_grads(host, cfg, batch, remat=True, accum_steps=2)
+    assert float(lc) == pytest.approx(float(lh), abs=1e-5)
+    for a, b in zip(T.leaves(gc_), T.leaves(gh)):
+        tol = 1e-5 * max(1.0, b.abs().max().item())
+        torch.testing.assert_close(a.cpu(), b, atol=tol, rtol=0)
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    step = make_train_step(cfg, ocfg, remat=True, accum_steps=2)
+    card, _, mc = step(card, opt.init(card), batch)
+    host, _, mh = step(host, opt.init(host), batch)
+    assert not any(ops.kernel_launches().values())   # no kernel trains
+    assert float(mc["grad_norm"]) == pytest.approx(float(mh["grad_norm"]),
+                                                   rel=1e-4)
+    # at step 1 AdamW moves an entry by about lr·sign(g): one whose
+    # gradient is near 0 may move the other way, so the leaves within 2·lr
+    for a, b in zip(T.leaves(card), T.leaves(host)):
+        torch.testing.assert_close(a.cpu(), b, atol=2.01e-3, rtol=0)
+
+
+def test_checkpoint_from_the_card_restores_on_the_cpu(dev, tmp_path):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import tree as T
+    cfg = get_config("mamba2-1.3b-reduced")
+    card = init_params(cfg, seed=0, device=dev)
+    tree = {"params": card, "opt": opt.init(card)}
+    ckpt.save(str(tmp_path), 1, tree)
+    template = T.unflatten(tree, [torch.zeros_like(t, device="cpu")
+                                  for t in T.leaves(tree)])
+    back = ckpt.restore(str(tmp_path), template)
+    for a, b in zip(T.leaves(tree), T.leaves(back)):
+        assert b.device.type == "cpu" and b.dtype == a.dtype
+        assert torch.equal(a.cpu(), b)

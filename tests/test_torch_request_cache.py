@@ -1,6 +1,6 @@
-"""The PyTorch port's request cache, ported from the first three tests of
-tests/test_request_cache.py (its tokenizer and corpus tests wait for the
-port's data package), plus its keys' parity with the JAX package's."""
+"""The PyTorch port's request cache and byte tokenizer, ported from
+tests/test_request_cache.py, plus the cache keys' and the tokenizer's parity
+with the JAX package's."""
 import numpy as np
 import pytest
 
@@ -10,9 +10,11 @@ import jax  # noqa: E402
 
 import repro.models as M  # noqa: E402
 from repro.configs import ensemble as jensemble  # noqa: E402
+from repro.data import tokenizer as jtok  # noqa: E402
 from repro.serving import request_cache as jrequest_cache  # noqa: E402
 from repro_torch.configs import ensemble  # noqa: E402
 from repro_torch.core import AllocationMatrix, host_cpus  # noqa: E402
+from repro_torch.data import tokenizer as tok  # noqa: E402
 from repro_torch.models import params_from_numpy  # noqa: E402
 from repro_torch.serving.request_cache import (PredictionCache,  # noqa: E402
                                                row_key)
@@ -88,3 +90,47 @@ def test_row_keys_match_the_jax_package(dtype, shape):
     cache._store.update(jcache._store)        # entries the JAX cache wrote
     hit, misses = cache.lookup(X, salt=b"s")
     assert misses == [] and hit[0].shape == (3,)
+
+
+def test_tokenizer_roundtrip():
+    s = "Hello, ensembles! héllo"
+    ids = tok.encode(s, bos=True, eos=True)
+    assert ids[0] == tok.BOS and ids[-1] == tok.EOS
+    assert tok.decode(ids) == s
+    assert ids == jtok.encode(s, bos=True, eos=True)
+
+
+def test_encode_batch_shapes():
+    texts = ["abc", "a much longer string than sixteen"]
+    X = tok.encode_batch(texts, seq_len=16, vocab_size=512)
+    assert X.shape == (2, 16) and X.dtype == np.int32
+    assert int(X.max()) < 512
+    for vocab in (512, 100):
+        np.testing.assert_array_equal(
+            tok.encode_batch(texts, seq_len=16, vocab_size=vocab),
+            jtok.encode_batch(texts, seq_len=16, vocab_size=vocab))
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Many small ops: beside the suite's other workers, torch's default of
+    one thread per core oversubscribes the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_text_corpus_learnable(one_torch_thread):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import train
+    cfg = get_config("musicgen-large").reduced()
+    corpus = tok.TextCorpus("the quick brown fox jumps over the lazy dog. " * 50,
+                            seq_len=32, vocab_size=cfg.vocab_size)
+    params = init_params(cfg, 0, "cpu")
+    ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=40)
+    _, hist = train(cfg, params, corpus.iterator(8), ocfg, steps=40,
+                    log_every=20)
+    assert hist[-1]["loss"] < hist[0]["loss"] - 0.5   # repeated text memorizes

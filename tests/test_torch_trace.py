@@ -1,6 +1,7 @@
 """Request traces in the PyTorch port, ported from the ``TraceRecorder``
 cases of tests/test_sim.py, plus the JSON lines' compatibility with the JAX
-package's in both directions."""
+package's in both directions, and a recorded trace replayed through both
+packages' simulators."""
 import numpy as np
 import pytest
 
@@ -14,6 +15,7 @@ from repro.serving import trace as jtrace  # noqa: E402
 from repro_torch.configs import ensemble  # noqa: E402
 from repro_torch.core import AllocationMatrix, host_cpus  # noqa: E402
 from repro_torch.models import params_from_numpy  # noqa: E402
+from repro_torch.serving import sim as tsim  # noqa: E402
 from repro_torch.serving.trace import (TraceEvent, TraceRecorder,  # noqa: E402
                                        load_trace, save_trace)
 
@@ -108,8 +110,13 @@ def test_inference_system_records_offered_trace(ens2, tmp_path):
     assert evs[0].t == 0.0 and evs[1].t >= 0.0
     path = str(tmp_path / "live.jsonl")
     save_trace(path, evs)
-    # the JAX package's simulator replays the port's recorded trace as-is
+    # the JAX package's simulator replays the port's recorded trace as-is,
+    # and so does the port's, with the same results
     sim = SimSystem(ServiceModel.from_delays({0: 100, 1: 100}),
                     [WorkerSpec(0, 16), WorkerSpec(1, 16)],
                     segment_size=16).run(jtrace.load_trace(path))
     assert sim.results()["completed"] == 2
+    ours = tsim.SimSystem(tsim.ServiceModel.from_delays({0: 100, 1: 100}),
+                          [tsim.WorkerSpec(0, 16), tsim.WorkerSpec(1, 16)],
+                          segment_size=16).run(load_trace(path))
+    assert ours.results() == sim.results()
