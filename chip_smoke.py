@@ -129,6 +129,30 @@ Phases, one JSON line each; any failed phase exits non-zero:
    --brownout`` as a subprocess on this card: one request answered with
    finite Y of the right shape, ``GET /metrics`` with the health gauges
    and the controller and brownout sections, and rc 0.
+13. ``parallel:flash_decode`` (run after ``train:step``, on a world-size-1
+   ``nccl`` group and a 1 x 1 ``DeviceMesh``): ``parallel.collectives.
+   flash_decode`` on DTensors at qwen3's decode shape (B16 L2048 H16 KV8
+   hd128 f32, slot 1087) and at hymba's wrapped 1024-slot ring, held to
+   the plain masked softmax (1e-5) and to the decode kernel's output, its
+   cache write exact; then 16 ``decode_step``s of qwen3-1.7b (full width,
+   prompt 1024, 2048 slots) under the variant ``cache_seqshard`` with the
+   params and cache placed per ``parallel.sharding``, held to the plain
+   decode path (``1e-4·max(1, max|ref|)``), with no kernel launched, and
+   ms a step beside the kernel path's and the plain path's;
+14. ``train:pod``: the training launcher's pod path
+   (``launch.train.train_pod``) in this process on the same group,
+   qwen3-1.7b at full width, a shape registered here (seq 4096, global
+   batch 2), 3 steps: each loss within 1e-4 (relative) of 3 plain
+   ``train_step``s on the same params and batches (the AdamW update on
+   DTensors shows from the second), s a step beside the plain step's and
+   ``train:qwen3``'s.  The group is destroyed after it;
+15. ``dryrun:qwen3``: ``python -m repro_torch.launch.dryrun --arch
+   qwen3-1.7b`` (train_4k, prefill_32k, decode_32k on a fake 16 x 16
+   mesh, on the host, started before ``train:qwen3`` and collected here)
+   and its roofline rows: FLOPs, per-rank bytes, collective bytes by type,
+   the dominant term and MODEL/traced FLOPs (PyTorch's counts, not XLA's);
+16. ``example:quickstart``: ``examples/torch_quickstart.py`` as a
+   subprocess on two cells of the card, rc 0.
 
 The line before the last holds the card's name and power limit; before it,
 the per-kernel summary line.  The last line is ``{"ok": true, "device":
@@ -1563,10 +1587,10 @@ def train_corpus(cfg, seq: int, seed: int):
     return TextCorpus(TRAIN_TEXT, seq, seed=seed, vocab_size=cfg.vocab_size)
 
 
-def phase_train(torch, seed: int, smi: str, profile: bool) -> dict:
+def phase_train(torch, seed: int, smi: str, profile: bool):
     """``train:qwen3``, then ``train:ckpt`` on its trained params (see the
     module docstring).  Returns the kernel launches of the checkpoint's
-    generation (training launches none)."""
+    generation (training launches none) and the median seconds a step."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -1656,7 +1680,7 @@ def phase_train(torch, seed: int, smi: str, profile: bool) -> dict:
           "loss_drop": losses[0] - losses[-1],
           "min_drop_held": TRAIN_MIN_DROP, "launches": launches})
     try:
-        return phase_ckpt(torch, cfg, params, corpus, seed, smi)
+        return phase_ckpt(torch, cfg, params, corpus, seed, smi), step_s
     finally:
         del params
         gc.collect()
@@ -1871,6 +1895,19 @@ CONTROL_ALLOC = [[16, 8], [16, 0]]      # member 0 on both cells: a sibling
 REBATCH_ALLOC = [[16, 8], [8, 0]]       # member 0 on cell 1 at batch 8
 SLOW_CHUNK_S = 0.05                     # the brownout drill's slow member 0
 LAUNCH_DURATION_S = 20
+FD_RING_POS = 1500                      # hymba's 1024-slot ring, wrapped
+FD_TOL = 1e-5                           # flash_decode vs the plain path
+FD_KERNEL_TOL = 2e-5                    # ... vs the decode kernel (its own
+                                        # tolerance in kernel:decode_attention)
+FD_MODEL = "qwen3-1.7b"
+FD_PROMPT, FD_MAX_LEN, FD_STEPS = 1024, 2048, 16
+FD_STEP_TOL = 1e-4                      # x max(1, max |ref|), PERF.md §2
+POD_SHAPE = "pod_smoke"                 # registered by train:pod
+POD_SEQ, POD_BATCH, POD_STEPS = 4096, 2, 3
+POD_LOSS_RTOL = 1e-4
+DRYRUN_ARCH = "qwen3-1.7b"              # train_4k, prefill_32k, decode_32k
+DRYRUN_TIMEOUT_S = 600
+QUICKSTART_TIMEOUT_S = 600
 SIM_BURSTS, SIM_REQ, SIM_ROWS = 25, 8, 8  # sim:qwen3's recorded trace: 200
                                         # requests, each burst sent as the
                                         # one before it completes
@@ -2417,6 +2454,301 @@ def phase_launch(smi: str) -> None:
           "brownout": m["brownout"], "output": lines[:12]})
 
 
+def clone_tree(tree):
+    from repro_torch.training import tree as T
+    return T.unflatten(tree, [t.clone() for t in T.leaves(tree)])
+
+
+def phase_parallel(torch, seed: int, smi: str) -> dict:
+    """``parallel:flash_decode`` (see the module docstring) on the
+    world-size-1 ``nccl`` group, which the caller destroys.  Returns the
+    decode kernel's launches of the kernel path's steps."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch import runtime_flags
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import join_process_group, make_host_mesh
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models.attention import masked_decode, slot_valid
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.collectives import flash_decode
+
+    dev = torch.device("cuda", 0)
+    join_process_group()
+    mesh = make_host_mesh(1, 1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 31)
+    cache_spec = shd.P("data", "model", None, None)
+    rep_spec = shd.P("data", None, None, None)
+    place = lambda t, spec: shd.place([t], [spec], mesh)[0]
+    cases = []
+    for (b, L, h, kv, hd), window, pos in (
+            (MAIN_DECODE, 0, MAIN_DECODE_VALID - 1),
+            (HYMBA_DECODE, HYMBA_DECODE[1], FD_RING_POS)):
+        q, kn, vn = (torch.randn((b, 1, n, hd), generator=gen, device=dev)
+                     for n in (h, kv, kv))
+        kc, vc = (torch.randn((b, L, kv, hd), generator=gen, device=dev)
+                  for _ in range(2))
+        slot = pos % L if window else pos
+        kr, vr = kc.clone(), vc.clone()
+        kr[:, slot], vr[:, slot] = kn[:, 0], vn[:, 0]
+        valid = slot_valid(L, pos, window, dev)
+        want = masked_decode(q, kr, vr, valid)
+        kern = ops.decode_attention(q, kr, vr, valid)
+        dk, dv = place(kc.clone(), cache_spec), place(vc.clone(), cache_spec)
+        dq, dkn, dvn = (place(t, rep_spec) for t in (q, kn, vn))
+        run = lambda: flash_decode(mesh, dq, dk, dv, dkn, dvn, pos,
+                                   window=window)
+        with implicit_replication():
+            out = run().full_tensor()
+            torch.cuda.synchronize()
+            ms = time_ms(torch, run)
+        err_plain = max_err(torch, out, want)[0]
+        err_kernel = max_err(torch, out, kern)[0]
+        cache_err = max(max_err(torch, dk.full_tensor(), kr)[0],
+                        max_err(torch, dv.full_tensor(), vr)[0])
+        case = {"shape": [b, L, h, kv, hd], "window": window, "pos": pos,
+                "n_valid": int(valid.sum().item()),
+                "max_abs_err_plain": err_plain,
+                "max_abs_err_kernel": err_kernel, "cache_err": cache_err,
+                "enqueued_ms": ms, "plain_enqueued_ms": time_ms(
+                    torch, lambda: masked_decode(q, kr, vr, valid)),
+                "kernel_enqueued_ms": time_ms(
+                    torch, lambda: ops.decode_attention(q, kr, vr, valid))}
+        cases.append(case)
+        if err_plain > FD_TOL or err_kernel > FD_KERNEL_TOL or cache_err:
+            fail(f"parallel:flash_decode: {case}")
+        del q, kn, vn, kc, vc, kr, vr, dk, dv, dq, dkn, dvn
+
+    # 16 decode steps of the full model: plain, the kernel path, and the
+    # sequence-sharded cache through flash_decode
+    cfg = get_config(FD_MODEL)
+    params = init_params(cfg, seed, dev)
+    b = MAIN_DECODE[0]
+    prompt = torch.randint(0, cfg.vocab_size, (b, FD_PROMPT), generator=gen,
+                           device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (b, FD_STEPS), generator=gen,
+                         device=dev)
+    with torch.no_grad():
+        _, cache0 = prefill(params, cfg, prompt, FD_MAX_LEN)
+
+    def steps(p, cache, tok_of, use_kernel=False, full=lambda t: t):
+        logits, ev = [], [torch.cuda.Event(enable_timing=True)
+                          for _ in range(FD_STEPS + 1)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        for t in range(FD_STEPS):
+            lg, cache = decode_step(p, cfg, cache, tok_of(t), FD_PROMPT + t,
+                                    use_kernel=use_kernel)
+            logits.append(full(lg)[:, :cfg.vocab_size])
+            ev[t + 1].record()
+        torch.cuda.synchronize()
+        return torch.stack(logits), [ev[i].elapsed_time(ev[i + 1])
+                                     for i in range(FD_STEPS)]
+
+    with torch.no_grad():
+        ref, plain_ms = steps(params, clone_tree(cache0),
+                              lambda t: toks[:, t:t + 1])
+        ops.reset_counts()
+        kout, kernel_ms = steps(params, clone_tree(cache0),
+                                lambda t: toks[:, t:t + 1], use_kernel=True)
+        launches = ops.kernel_launches()
+        runtime_flags.set_variant("cache_seqshard", mesh)
+        try:
+            dparams = shd.place(
+                params, shd.param_specs(cfg, param_shapes(cfg), mesh), mesh)
+            dcache = shd.place(cache0, shd.cache_specs(
+                cfg, mesh, b, FD_MAX_LEN), mesh)
+            host_toks = toks.cpu().numpy()
+            ops.reset_counts()
+            with implicit_replication():
+                sout, sharded_ms = steps(
+                    dparams, dcache,
+                    lambda t: shard_batch({"t": host_toks[:, t:t + 1]},
+                                          mesh)["t"],
+                    full=lambda lg: lg.full_tensor())
+            sharded_launches = ops.kernel_launches()
+        finally:
+            runtime_flags.set_variant("baseline")
+    err, scale = max_err(torch, sout, ref)
+    kerr = max_err(torch, kout, ref)[0]
+    del params, dparams, cache0, dcache
+    gc.collect()
+    torch.cuda.empty_cache()
+    if err > FD_STEP_TOL * scale or any(sharded_launches.values()) or \
+            launches.get("decode_attention", 0) != \
+            FD_STEPS * layer_counts(cfg)[0]:
+        fail(f"parallel:flash_decode: sharded decode err {err} (scale "
+             f"{scale}), sharded-run launches {sharded_launches}, kernel "
+             f"path launches {launches}")
+    med = lambda xs: float(sorted(xs)[len(xs) // 2])
+    import torch.distributed as dist
+    emit({"phase": "parallel:flash_decode", "ok": True, "card": smi,
+          "mesh": {"data": 1, "model": 1}, "backend": dist.get_backend(),
+          "cases": cases, "model": cfg.name, "layers": cfg.num_layers,
+          "batch": b, "prompt": FD_PROMPT, "max_len": FD_MAX_LEN,
+          "steps": FD_STEPS, "max_abs_err": err, "tol": FD_STEP_TOL * scale,
+          "kernel_path_max_abs_err": kerr,
+          "sharded_ms_per_step": med(sharded_ms),
+          "kernel_ms_per_step": med(kernel_ms),
+          "plain_ms_per_step": med(plain_ms),
+          "sharded_launches": sharded_launches,
+          "kernel_path_launches": launches})
+    return launches
+
+
+def phase_pod(torch, seed: int, smi: str, train_step_s: float) -> None:
+    """``train:pod``: the training launcher's pod path in process on the
+    world-size-1 group (see the module docstring)."""
+    import repro_torch.configs as C
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.train import train_pod
+    from repro_torch.models import init_params
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import make_train_step
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config(TRAIN_MODEL)
+    C.INPUT_SHAPES[POD_SHAPE] = dict(seq_len=POD_SEQ, global_batch=POD_BATCH,
+                                     kind="train")
+    try:
+        # the plain train_step on the same params and batches
+        params = init_params(cfg, seed, dev)
+        state = opt.init(params)
+        it = SyntheticLM(cfg.vocab_size, POD_SEQ, task="copy",
+                         seed=seed).iterator(POD_BATCH, cfg)
+        step = make_train_step(cfg, opt.AdamWConfig(total_steps=POD_STEPS),
+                               remat=True)
+        plain = []
+        for _ in range(POD_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, next(it))
+            plain.append({"loss": float(m["loss"]),
+                          "s": time.perf_counter() - t0})
+        del params, state, step, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        history = train_pod(TRAIN_MODEL, POD_SHAPE, steps=POD_STEPS,
+                            seed=seed, log=lambda m: None)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    finally:
+        del C.INPUT_SHAPES[POD_SHAPE]
+        gc.collect()
+        torch.cuda.empty_cache()
+    losses = [h["loss"] for h in history]
+    plain_losses = [h["loss"] for h in plain]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
+    if len(losses) != POD_STEPS or max(rel) > POD_LOSS_RTOL or \
+            not all(math.isfinite(x) for x in losses):
+        fail(f"train:pod: losses {losses} vs the plain steps' "
+             f"{plain_losses} (relative {rel})")
+    median = lambda hist: float(sorted(h["s"] for h in hist[1:])[
+        (len(hist) - 1) // 2])
+    import torch.distributed as dist
+    emit({"phase": "train:pod", "ok": True, "card": smi,
+          "model": cfg.name, "layers": cfg.num_layers,
+          "mesh": {"data": 1, "model": 1}, "backend": dist.get_backend(),
+          "seq": POD_SEQ, "global_batch": POD_BATCH, "data": "copy",
+          "remat": True, "use_kernel": False, "loss": losses,
+          "plain_loss": plain_losses, "loss_rel_err": rel,
+          "loss_rtol": POD_LOSS_RTOL, "step_s": [h["s"] for h in history],
+          "step_s_after_first": median(history),
+          "plain_step_s": [h["s"] for h in plain],
+          "plain_step_s_after_first": median(plain),
+          "peak_device_gb": peak_gb,
+          "train_qwen3_step_s_median": train_step_s,
+          "train_qwen3_tokens_per_step": TRAIN_BATCH * TRAIN_SEQ,
+          "tokens_per_step": POD_BATCH * POD_SEQ})
+
+
+def start_dryrun(out_dir: str):
+    """``dryrun:qwen3``'s subprocess (CPU only), started early so that it
+    runs beside the card's phases."""
+    import os
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           DRYRUN_ARCH, "--out", out_dir]
+    return cmd, time.perf_counter(), subprocess.Popen(
+        cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env={**os.environ, "PYTHONPATH": str(SRC),
+                        "OMP_NUM_THREADS": "1"})
+
+
+def phase_dryrun(started, out_dir: str, smi: str) -> None:
+    """``dryrun:qwen3``: the dry-run's three records and roofline rows."""
+    from repro_torch.launch import roofline
+    cmd, t0, proc = started
+    try:
+        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"dryrun:qwen3: rc {proc.returncode}: {out[-1500:]} "
+             f"{err[-1500:]}")
+    recs = {}
+    for f in sorted(Path(out_dir).glob("*.json")):
+        rec = json.loads(f.read_text())
+        recs[rec["shape"]] = rec
+    rows = {r.shape: r for r in roofline.load_rows("single",
+                                                   directory=out_dir)}
+    shapes = ("train_4k", "prefill_32k", "decode_32k")
+    if not set(shapes) <= set(rows) or \
+            not all(recs[s]["flops_per_rank"] > 0 for s in shapes):
+        fail(f"dryrun:qwen3: records {sorted(recs)}, rows {sorted(rows)}")
+    emit({"phase": "dryrun:qwen3", "ok": True, "card": smi,
+          "command": " ".join(["python", "-m"] + cmd[2:]),
+          "seconds": seconds, "mesh": recs["train_4k"]["mesh_shape"],
+          "counts": "PyTorch's (per-rank ops of the traced step), not XLA's",
+          "rows": {s: {
+              "trace_s": recs[s]["trace_s"],
+              "flops": rows[s].hlo_flops,
+              "flops_per_rank": recs[s]["flops_per_rank"],
+              "bytes_accessed_per_rank": recs[s]["bytes_accessed_per_rank"],
+              "argument_bytes_per_rank":
+                  recs[s]["memory"]["argument_bytes_per_rank"],
+              "output_bytes_per_rank":
+                  recs[s]["memory"]["output_bytes_per_rank"],
+              "collective_bytes_per_rank": recs[s]["collectives"]["bytes"],
+              "collective_counts": recs[s]["collectives"]["counts"],
+              "compute_s": rows[s].compute_s, "memory_s": rows[s].memory_s,
+              "collective_s": rows[s].collective_s,
+              "dominant": rows[s].dominant,
+              "model_flops": rows[s].model_flops,
+              "model_over_traced": rows[s].useful_ratio}
+              for s in shapes}})
+
+
+def phase_quickstart(smi: str) -> None:
+    """``example:quickstart``: ``examples/torch_quickstart.py`` on the
+    card as a user runs it."""
+    import os
+    cmd = [sys.executable, "examples/torch_quickstart.py"]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=QUICKSTART_TIMEOUT_S,
+                              env={**os.environ, "PYTHONPATH": str(SRC)})
+    except subprocess.TimeoutExpired as e:
+        fail(f"example:quickstart: no end in {QUICKSTART_TIMEOUT_S} s: "
+             f"{(e.stdout or '')[-1500:]}")
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or not any("cuda0" in ln for ln in lines):
+        fail(f"example:quickstart: rc {proc.returncode}: {lines[-20:]} "
+             f"{proc.stderr[-2000:]}")
+    emit({"phase": "example:quickstart", "ok": True, "card": smi,
+          "command": "python examples/torch_quickstart.py",
+          "rc": proc.returncode, "seconds": seconds,
+          "output": [ln for ln in lines if ln.strip()][:40]})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2487,17 +2819,38 @@ def main(argv=None) -> int:
     for k, v in phase_alloc(torch, args.seed, smi).items():
         launches[k] = launches.get(k, 0) + v
 
+    # the dry-run traces on the host beside the training phases
+    import tempfile
+    dry_dir = tempfile.mkdtemp(prefix="dryrun_torch_")
+    dryrun = start_dryrun(dry_dir)
+
     # 7-8. training at full width, its checkpoint served; a train step
     # held to float64
-    for k, v in phase_train(torch, args.seed, smi, args.profile).items():
+    got, train_step_s = phase_train(torch, args.seed, smi, args.profile)
+    for k, v in got.items():
         launches[k] = launches.get(k, 0) + v
     phase_train_step(torch, args.seed, smi)
+
+    # 13-15. flash_decode and the pod training path on a world-size-1 nccl
+    # group (destroyed before the control phases), then the dry-run's
+    # records
+    import torch.distributed as dist
+    try:
+        for k, v in phase_parallel(torch, args.seed, smi).items():
+            launches[k] = launches.get(k, 0) + v
+        phase_pod(torch, args.seed, smi, train_step_s)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    phase_dryrun(dryrun, dry_dir, smi)
 
     # 9-12. the front door and the control plane, the simulator, then the
     # serve launcher
     for k, v in phase_control(torch, args.seed, smi).items():
         launches[k] = launches.get(k, 0) + v
     phase_launch(smi)
+    # 16. the quickstart example as a user runs it
+    phase_quickstart(smi)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     emit({"kernels": kernels})

@@ -7,11 +7,9 @@ Tasks:
   * "uniform": i.i.d. tokens (calibration / benchmarking only).
 
 The iterator yields host numpy batches, drawn exactly as the JAX package
-draws them: the same seed gives both packages the same batches.  The JAX
-package's ``shard_batch`` (a batch placed on a ``jax.sharding`` mesh for the
-pod launcher) waits for the port's parallel tooling (ROADMAP Queue 1 item
-15); on one card a batch goes to the device with ``torch.from_numpy(...)
-.to(device)`` (``launch/train.py``).
+draws them: the same seed gives both packages the same batches.
+:func:`shard_batch` places a global host batch on a ``DeviceMesh`` for the
+pod launcher, each rank keeping its slice.
 """
 from __future__ import annotations
 
@@ -98,3 +96,26 @@ class PrefetchIterator:
     def close(self):
         self._stop.set()
 
+
+
+def shard_batch(batch: Dict[str, np.ndarray], mesh, batch_axes=("data",)):
+    """A global host batch as DTensors with the leading dim sharded over
+    ``batch_axes`` of ``mesh`` (a ``DeviceMesh``): every rank draws the same
+    global batch from the same seed, and copies only its own slice to its
+    device."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.parallel.collectives import contiguous_strides
+    from repro_torch.parallel.sharding import P, local_slices, to_placements
+    out = {}
+    for k, v in batch.items():
+        v = np.asarray(v)
+        pl = to_placements(P(tuple(batch_axes), *([None] * (v.ndim - 1))),
+                           mesh)
+        local = np.ascontiguousarray(v[local_slices(v.shape, mesh, pl)])
+        shape = torch.Size(v.shape)
+        out[k] = DTensor.from_local(
+            torch.from_numpy(local).to(mesh.device_type), mesh, pl,
+            run_check=False, shape=shape, stride=contiguous_strides(shape))
+    return out

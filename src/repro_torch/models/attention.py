@@ -21,8 +21,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch import runtime_flags
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models.layers import apply_rope, rms_norm
+from repro_torch.parallel.collectives import einsum, flash_decode
 
 NEG_INF = -1e30
 _CHUNK = 512          # KV chunk for the online-softmax loop
@@ -33,9 +36,9 @@ def project_qkv(cfg: ModelConfig, p, x, kv_src=None):
     """x: (B,S,D) -> q (B,S,H,hd), k/v (B,Skv,KV,hd) projected from
     ``kv_src`` (default x)."""
     kv_src = x if kv_src is None else kv_src
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", kv_src, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", kv_src, p["wv"])
+    q = einsum("bsd,dhk->bshk", x, p["wq"])
+    k = einsum("bsd,dhk->bshk", kv_src, p["wk"])
+    v = einsum("bsd,dhk->bshk", kv_src, p["wv"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -68,10 +71,10 @@ def dense_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0,
     h = q.shape[2]
     k, v = _expand_kv(k, h), _expand_kv(v, h)
     scale = scale or q.shape[-1] ** -0.5
-    logits = torch.einsum("bqhk,bshk->bhqs", q, k).float() * scale
+    logits = einsum("bqhk,bshk->bhqs", q, k).float() * scale
     logits = logits + _mask_bias(q_pos, k_pos, causal, window)[None, None]
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqs,bshk->bqhk", probs, v)
+    return einsum("bhqs,bshk->bqhk", probs, v)
 
 
 def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0,
@@ -93,14 +96,14 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0,
     acc = torch.zeros((b, sq, h, hd), dtype=torch.float32, device=q.device)
     for i in range(nk):
         sl = slice(i * chunk, (i + 1) * chunk)
-        logits = torch.einsum("bqhk,bshk->bhqs", qf, k[:, sl].float())
+        logits = einsum("bqhk,bshk->bhqs", qf, k[:, sl].float())
         logits = logits + _mask_bias(q_pos, k_pos[sl], causal, window)[None, None]
         m_new = torch.maximum(m, logits.amax(dim=-1))
         alpha = torch.exp(m - m_new)
         p = torch.exp(logits - m_new[..., None])
         l = l * alpha + p.sum(dim=-1)
         acc = acc * alpha.transpose(1, 2)[..., None] + \
-            torch.einsum("bhqs,bshk->bqhk", p, v[:, sl].float())
+            einsum("bhqs,bshk->bqhk", p, v[:, sl].float())
         m = m_new
     out = acc / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
     return out.to(q.dtype)
@@ -122,14 +125,14 @@ def self_attention(cfg: ModelConfig, p, x, positions, *, window: int = 0,
     else:
         out = chunked_attention(q, k, v, positions, positions, causal=True,
                                 window=window)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return einsum("bshk,hkd->bsd", out, p["wo"])
 
 
 def cross_attention(cfg: ModelConfig, p, x, frontend) -> torch.Tensor:
     """x: (B,S,D) attends to frontend embeddings (B,F,fdim).  No mask, no
     RoPE."""
     q, k, v = project_qkv(cfg, p, x, kv_src=frontend)
-    return torch.einsum("bshk,hkd->bsd", attend_all(q, k, v), p["wo"])
+    return einsum("bshk,hkd->bsd", attend_all(q, k, v), p["wo"])
 
 
 def attend_all(q, k, v) -> torch.Tensor:
@@ -151,11 +154,11 @@ def masked_decode(q, k, v, valid, *, scale: Optional[float] = None
     h = q.shape[2]
     k, v = _expand_kv(k, h), _expand_kv(v, h)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    logits = torch.einsum("bqhk,bshk->bhqs", q.float(), k.float()) * scale
+    logits = einsum("bqhk,bshk->bhqs", q.float(), k.float()) * scale
     logits = torch.where(valid[None, None, None, :], logits,
                          torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhqs,bshk->bqhk", probs, v.float()).to(q.dtype)
+    return einsum("bhqs,bshk->bqhk", probs, v.float()).to(q.dtype)
 
 
 @functools.lru_cache(maxsize=16)
@@ -172,6 +175,15 @@ def slot_valid(L: int, pos: int, window: int, device) -> torch.Tensor:
     return valid
 
 
+def _flash_decode_mesh(L: int, quantized: bool):
+    """The variant's mesh when ``decode_cache_seq`` is set to one, the cache
+    is not int8 and its L slots divide the "model" axis; else None."""
+    mesh = runtime_flags.SHARDING_OPTS.get("decode_cache_seq")
+    if quantized or mesh is None or isinstance(mesh, bool):
+        return None
+    return mesh if L % axis_sizes(mesh)["model"] == 0 else None
+
+
 def decode_attention(cfg: ModelConfig, p, x, k_cache, v_cache, pos: int, *,
                      window: int = 0, use_kernel: bool = False,
                      k_scale=None, v_scale=None) -> torch.Tensor:
@@ -184,14 +196,24 @@ def decode_attention(cfg: ModelConfig, p, x, k_cache, v_cache, pos: int, *,
     cache is int8: the new slot is quantized, the cache is dequantized on
     read, and the plain path runs whatever ``use_kernel`` says.  The caller
     keeps ``pos`` inside an ATTN cache (``transformer.decode_step`` checks
-    it)."""
+    it).  Under the variant ``cache_seqshard`` (``runtime_flags``) an f32
+    or bf16 cache of DTensors sequence-sharded over "model" decodes through
+    ``parallel.collectives.flash_decode``, as the JAX package's does when
+    L divides that axis."""
     L = k_cache.shape[1]
     q, k_new, v_new = project_qkv(cfg, p, x)
     posv = torch.full((1,), pos, device=x.device)
     q = apply_rope(q, posv, cfg.rope_theta)
     k_new = apply_rope(k_new, posv, cfg.rope_theta)
-    slot = pos % L if window > 0 else pos
     quantized = k_scale is not None
+    mesh = _flash_decode_mesh(L, quantized)
+    if mesh is not None:
+        # variant "cache_seqshard": the cache is sequence-sharded and
+        # flash_decode updates and reads it where it lies
+        out = flash_decode(mesh, q, k_cache, v_cache, k_new, v_new, pos,
+                           window=window)
+        return einsum("bshk,hkd->bsd", out, p["wo"])
+    slot = pos % L if window > 0 else pos
     if quantized:
         from repro_torch.kernels.quant import dequantize_kv, quantize_kv
         k_cache[:, slot], k_scale[:, slot] = quantize_kv(k_new[:, 0])
@@ -208,4 +230,4 @@ def decode_attention(cfg: ModelConfig, p, x, k_cache, v_cache, pos: int, *,
         out = kops.decode_attention(q, k_read, v_read, valid)
     else:
         out = masked_decode(q, k_read, v_read, valid)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return einsum("bshk,hkd->bsd", out, p["wo"])

@@ -60,3 +60,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
             for name, (shape, dt) in layer_cache_struct(
                 cfg, kind, batch, max_len, dtype, quantized=quantized).items()})
     return {"layers": layers}
+
+
+def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
+                 dtype=torch.float32, *, quantized: bool = False,
+                 device="meta"):
+    """The cache tree as empty tensors of its shapes and dtypes (meta, so
+    nothing is allocated, unless made under ``FakeTensorMode`` on another
+    device): the JAX package's ``ShapeDtypeStruct`` tree."""
+    return {"layers": [
+        {name: torch.empty((cfg.repeats,) + shape, dtype=dt, device=device)
+         for name, (shape, dt) in layer_cache_struct(
+             cfg, kind, batch, max_len, dtype, quantized=quantized).items()}
+        for kind in cfg.pattern]}

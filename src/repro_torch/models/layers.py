@@ -1,10 +1,21 @@
-"""Shared primitive layers: RMSNorm, RoPE, SwiGLU MLP, embeddings."""
+"""Shared primitive layers: RMSNorm, RoPE, SwiGLU MLP, embeddings.
+
+On DTensors the products go through ``parallel.collectives.einsum`` and
+the table lookup through its ``embedding``, so a sharded step shards them
+as the rules say; plain tensors take ``@`` and an index."""
 from __future__ import annotations
 
 import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel.collectives import einsum, embedding, is_dtensor
+
+
+def _lead(x: torch.Tensor) -> str:
+    """einsum letters of x's leading dims (all but the last)."""
+    return "ABCEG"[:x.ndim - 1]
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -38,13 +49,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    g = x @ w_gate
-    u = x @ w_up
-    return (F.silu(g) * u) @ w_down
+    if not (is_dtensor(x) or is_dtensor(w_gate)):
+        g = x @ w_gate
+        u = x @ w_up
+        return (F.silu(g) * u) @ w_down
+    n = _lead(x)
+    g = einsum(f"{n}d,df->{n}f", x, w_gate)
+    u = einsum(f"{n}d,df->{n}f", x, w_up)
+    return einsum(f"{n}f,fd->{n}d", F.silu(g) * u, w_down)
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor, scale: bool) -> torch.Tensor:
-    x = table[tokens.long()]
+    x = embedding(tokens.long(), table)
     if scale:
         x = x * math.sqrt(table.shape[1])
     return x
@@ -52,6 +68,9 @@ def embed(tokens: torch.Tensor, table: torch.Tensor, scale: bool) -> torch.Tenso
 
 def unembed(x: torch.Tensor, table_or_head: torch.Tensor,
             tied: bool) -> torch.Tensor:
+    if not (is_dtensor(x) or is_dtensor(table_or_head)):
+        return x @ (table_or_head.t() if tied else table_or_head)
+    n = _lead(x)
     if tied:   # table: (V, D)
-        return x @ table_or_head.t()
-    return x @ table_or_head
+        return einsum(f"{n}d,vd->{n}v", x, table_or_head)
+    return einsum(f"{n}d,dv->{n}v", x, table_or_head)

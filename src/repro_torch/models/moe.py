@@ -13,10 +13,17 @@ The JAX package dispatches and combines with one-hot einsums so that expert
 sharding becomes an all-to-all; here the same functions are a scatter of
 token rows into the ``(groups, E, cap, D)`` buffer and a gather back out.
 Each capacity slot holds at most one (token, k) assignment, so the dispatch
-is the same function and the combine the same sum in another order.  The
-expert products stay ``torch.einsum``, as the JAX package computes them
-outside any kernel.  Its sharding constraints (``_c``) do nothing on one
-device and are left to ROADMAP Queue 1 item 15.
+is the same function and the combine the same sum in another order.
+Plain tensors scatter only the kept assignments (a boolean index, so the
+host waits for the count); DTensors, whose shapes may not follow the
+data (the dry-run traces fake ones), scatter every assignment, the
+dropped ones into a spare row, each rank its own groups (``local_map``,
+as DTensor has no sharding for the indexed copy).  The expert products stay
+einsums, as the JAX package computes them outside any kernel.  Under the
+variant ``moe_ep`` (``runtime_flags``) the layer's tensors are constrained
+as the JAX package's ``_c`` constrains them -- groups over the batch axes,
+experts over "model" -- by redistributing DTensors (:func:`_c`); plain
+tensors pass as they are.
 """
 from __future__ import annotations
 
@@ -25,7 +32,11 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import runtime_flags
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import axis_sizes, batch_axes
+from repro_torch.parallel.collectives import einsum, gather_dims, is_dtensor
+from repro_torch.parallel.sharding import P, constrain, to_placements
 
 GROUP = 512
 
@@ -34,7 +45,7 @@ def _router(x: torch.Tensor, w_router: torch.Tensor, top_k: int):
     """x: (T,D) -> (weights (T,k), idx (T,k), probs (T,E)).  Ties go to the
     lower expert index, as ``lax.top_k`` gives them: a stable descending
     sort, where ``torch.topk`` promises no order."""
-    logits = torch.einsum("td,de->te", x, w_router).float()
+    logits = einsum("td,de->te", x, w_router).float()
     probs = torch.softmax(logits, dim=-1)
     weights, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, idx = weights[:, :top_k], idx[:, :top_k]
@@ -52,9 +63,9 @@ def load_balance_loss(probs: torch.Tensor, idx: torch.Tensor,
 
 def _shared_expert(cfg: ModelConfig, p, x, out):
     if cfg.moe.shared_expert:
-        sh = torch.einsum("bsd,df->bsf", x, p["ws_gate"])
-        su = torch.einsum("bsd,df->bsf", x, p["ws_up"])
-        out = out + torch.einsum("bsf,fd->bsd", F.silu(sh) * su, p["ws_down"])
+        sh = einsum("bsd,df->bsf", x, p["ws_gate"])
+        su = einsum("bsd,df->bsf", x, p["ws_up"])
+        out = out + einsum("bsf,fd->bsd", F.silu(sh) * su, p["ws_down"])
     return out
 
 
@@ -67,12 +78,22 @@ def moe_ffn_dense(cfg: ModelConfig, p, x: torch.Tensor
     xt = x.reshape(-1, d)
     weights, idx, probs = _router(xt, p["router"], m.top_k)
     aux = load_balance_loss(probs, idx, m.num_experts) * m.router_aux_coef
-    wfull = torch.zeros((xt.shape[0], m.num_experts), dtype=x.dtype,
-                        device=x.device).scatter_add_(1, idx, weights)
-    h = torch.einsum("td,edf->tef", xt, p["w_gate"])
-    u = torch.einsum("td,edf->tef", xt, p["w_up"])
-    eo = torch.einsum("tef,efd->ted", F.silu(h) * u, p["w_down"])
-    out = torch.einsum("te,ted->td", wfull, eo).reshape(b, s, d)
+    if is_dtensor(idx):
+        # each token's router weight at each of its k (distinct) experts,
+        # zero elsewhere (an elementwise one-hot: DTensor has no
+        # scatter_add_)
+        chosen = idx[..., None] == torch.arange(m.num_experts,
+                                                device=x.device)
+        wfull = torch.where(chosen, weights[..., None],
+                            torch.zeros((), dtype=x.dtype, device=x.device)
+                            ).sum(1)
+    else:
+        wfull = torch.zeros((xt.shape[0], m.num_experts), dtype=x.dtype,
+                            device=x.device).scatter_add_(1, idx, weights)
+    h = einsum("td,edf->tef", xt, p["w_gate"])
+    u = einsum("td,edf->tef", xt, p["w_up"])
+    eo = einsum("tef,efd->ted", F.silu(h) * u, p["w_down"])
+    out = einsum("te,ted->td", wfull, eo).reshape(b, s, d)
     return _shared_expert(cfg, p, x, out), aux
 
 
@@ -100,6 +121,86 @@ def dispatch_slots(idx: torch.Tensor, num_experts: int, cap: int):
     return pos, pos < cap
 
 
+def _dispatch_kept(xg: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
+                   rows: int):
+    """xg (ng,g,D) tokens, slot (ng,g,k) each assignment's row in its
+    group's buffer, keep (ng,g,k) -> (ng, rows, D) buffers holding each
+    kept assignment's token at its row, zeros elsewhere."""
+    ng, g, d = xg.shape
+    base = (torch.arange(ng, device=xg.device) * rows)[:, None, None]
+    dest = (base + slot)[keep]
+    src = torch.arange(ng * g, device=xg.device).reshape(ng, g, 1).expand(
+        ng, g, slot.shape[-1])[keep]
+    ex = torch.zeros((ng * rows, d), dtype=xg.dtype, device=xg.device)
+    ex[dest] = xg.reshape(-1, d)[src]
+    return ex.reshape(ng, rows, d)
+
+
+def _dispatch(xg: torch.Tensor, dest: torch.Tensor, rows: int):
+    """:func:`_dispatch_kept` in static shapes: dest (ng,g,k) each
+    assignment's row, ``rows`` where it was dropped.  The dropped
+    assignments all land in one spare row after the last group's, so the
+    buffers are a contiguous view."""
+    ng, g, d = xg.shape
+    k = dest.shape[-1]
+    base = (torch.arange(ng, device=xg.device) * rows)[:, None, None]
+    flat = torch.where(dest < rows, base + dest, ng * rows)
+    buf = torch.zeros((ng * rows + 1, d), dtype=xg.dtype, device=xg.device)
+    buf[flat.reshape(-1)] = xg[:, :, None].expand(ng, g, k, d).reshape(-1, d)
+    return buf[:ng * rows].view(ng, rows, d)
+
+
+def _gather(eo: torch.Tensor, rows: torch.Tensor):
+    """eo (ng,R,D) expert outputs, rows (ng,g,k) -> (ng,g,k,D) the rows."""
+    ng, r, d = eo.shape
+    base = (torch.arange(ng, device=eo.device) * r)[:, None, None]
+    return eo.reshape(-1, d)[base + rows]
+
+
+def _per_group(fn, out_ndim: int, data, index, *rest):
+    """``fn(data, index, *rest)``, whose output has ``out_ndim`` dims; for
+    DTensors, on each rank's groups (``local_map``: the group dim over the
+    batch axes where it divides them, every other dim whole), since DTensor
+    has no sharding for the indexed copy.  Plain tensors go straight to
+    ``fn``."""
+    if not is_dtensor(data):
+        return fn(data, index, *rest)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = data.device_mesh
+    bax = batch_axes(mesh)
+    size = 1
+    for a in bax:
+        size *= axis_sizes(mesh)[a]
+    g = (bax if len(bax) > 1 else bax[0]) \
+        if bax and data.shape[0] % size == 0 else None
+    pl = lambda n: to_placements(P(g, *([None] * (n - 1))), mesh)
+    return local_map(fn, out_placements=pl(out_ndim),
+                     in_placements=(pl(data.ndim), pl(index.ndim))
+                     + (None,) * len(rest),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        data, index, *rest)
+
+
+def _c(t, *spec):
+    """Variant ``moe_ep``: ``t`` placed per ``spec`` on the variant's mesh,
+    "B" standing for the batch axes and an axis dropped where the dim does
+    not divide it (the JAX package's ``_c``); else ``t`` as it is."""
+    mesh = runtime_flags.SHARDING_OPTS.get("moe_constraints")
+    if mesh is None:
+        return t
+    sizes = axis_sizes(mesh)
+    bax = batch_axes(mesh)
+    bax = bax if len(bax) > 1 else (bax[0] if bax else None)
+    full = []
+    for dim, s in enumerate(spec):
+        s = bax if s == "B" else s
+        size = 1
+        for a in ((s,) if isinstance(s, str) else (s or ())):
+            size *= sizes[a]
+        full.append(s if s and t.shape[dim] % size == 0 else None)
+    return constrain(t, P(*full), mesh)
+
+
 def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B,S,D) -> (out (B,S,D), aux_loss scalar)."""
@@ -118,32 +219,34 @@ def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor
         xt = F.pad(xt, (0, 0, 0, pad))
         weights = F.pad(weights, (0, 0, 0, pad))
         idx = F.pad(idx, (0, 0, 0, pad))
-    xg = xt.reshape(ng, g, d)
+    xg = _c(xt.reshape(ng, g, d), "B", None, None)
     wg = weights.reshape(ng, g, m.top_k)
-    ig = idx.reshape(ng, g, m.top_k)
+    # a group's slots are ranked over all of its tokens: a DTensor whose
+    # tokens are sharded inside a group is gathered first
+    ig = gather_dims(idx.reshape(ng, g, m.top_k), (1, 2))
     pos, keep = dispatch_slots(ig, m.num_experts, cap)
 
     # dispatch: row (group n, expert e, slot c) of the buffer is the token
     # whose kept assignment landed there, zeros where none did
+    rows = m.num_experts * cap
     slot = ig * cap + pos                                      # (ng,g,k)
-    base = (torch.arange(ng, device=x.device) * (m.num_experts * cap)
-            )[:, None, None]
-    dest = (base + slot)[keep]
-    src = torch.arange(ng * g, device=x.device).reshape(ng, g, 1).expand(
-        ng, g, m.top_k)[keep]
-    ex = torch.zeros((ng * m.num_experts * cap, d), dtype=x.dtype,
-                     device=x.device)
-    ex[dest] = xt[src]
-    ex = ex.reshape(ng, m.num_experts, cap, d)
-    h = torch.einsum("necd,edf->necf", ex, p["w_gate"])
-    u = torch.einsum("necd,edf->necf", ex, p["w_up"])
-    eo = torch.einsum("necf,efd->necd", F.silu(h) * u, p["w_down"])
+    if is_dtensor(xg):
+        ex = _per_group(_dispatch, 3, xg, torch.where(keep, slot, rows),
+                        rows)
+    else:
+        ex = _dispatch_kept(xg, slot, keep, rows)
+    ex = _c(ex.reshape(ng, m.num_experts, cap, d),        # tokens -> experts
+            "B", "model", None, None)
+    h = einsum("necd,edf->necf", ex, p["w_gate"])
+    u = einsum("necd,edf->necf", ex, p["w_up"])
+    eo = _c(einsum("necf,efd->necd", F.silu(h) * u, p["w_down"]),
+            "B", "model", None, None)
 
     # combine: each token's kept assignments, weighted and summed over k
-    rows = (base + torch.where(keep, slot, 0)).reshape(-1)
-    got = eo.reshape(-1, d)[rows].reshape(ng, g, m.top_k, d)
+    got = _per_group(_gather, 4, eo.reshape(ng, rows, d),
+                     torch.where(keep, slot, 0))               # (ng,g,k,d)
     w = torch.where(keep, wg, torch.zeros((), dtype=wg.dtype,
                                            device=wg.device))
-    out = torch.einsum("ngk,ngkd->ngd", w, got)
+    out = _c(einsum("ngk,ngkd->ngd", w, got), "B", None, None)
     out = out.reshape(-1, d)[:t].reshape(b, s, d)
     return _shared_expert(cfg, p, x, out), aux

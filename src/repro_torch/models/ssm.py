@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import rms_norm
+from repro_torch.parallel.collectives import einsum, gather_dims
 
 
 def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
@@ -78,13 +79,13 @@ def ssd_chunked(x, dt, A, bmat, cmat, chunk: int) -> torch.Tensor:
     xdt = xc * dtc[..., None]                           # (b,nc,cl,h,p)
     # intra-chunk (attention-like) term
     L = segsum_exp(cs.transpose(2, 3))                  # (b,nc,h,cl,cl)
-    scores = torch.einsum("bcin,bcjn->bcij", cc, bc)    # (b,nc,cl,cl)
+    scores = einsum("bcin,bcjn->bcij", cc, bc)          # (b,nc,cl,cl)
     gated = scores[:, :, None] * L                      # (b,nc,h,cl,cl)
-    y_intra = torch.einsum("bchij,bcjhp->bcihp", gated, xdt)
+    y_intra = einsum("bchij,bcjhp->bcihp", gated, xdt)
     # per-chunk final states
     decay_to_end = torch.exp(cs[:, :, -1:, :] - cs)     # (b,nc,cl,h)
-    states = torch.einsum("bcjn,bcjhp->bchpn", bc,
-                          xdt * decay_to_end[..., None])  # (b,nc,h,p,n)
+    states = einsum("bcjn,bcjhp->bchpn", bc,
+                    xdt * decay_to_end[..., None])      # (b,nc,h,p,n)
     # inter-chunk recurrence: the state entering each chunk
     chunk_decay = torch.exp(cs[:, :, -1, :])            # (b,nc,h)
     hstate = torch.zeros((b, h, p, n), dtype=x.dtype, device=x.device)
@@ -93,7 +94,7 @@ def ssd_chunked(x, dt, A, bmat, cmat, chunk: int) -> torch.Tensor:
         hprevs.append(hstate)
         hstate = hstate * chunk_decay[:, c, :, None, None] + states[:, c]
     hprevs = torch.stack(hprevs, dim=1)                 # (b,nc,h,p,n)
-    y_inter = torch.einsum("bcin,bchpn->bcihp", cc, hprevs) * \
+    y_inter = einsum("bcin,bchpn->bcihp", cc, hprevs) * \
         torch.exp(cs)[..., None]
     y = (y_intra + y_inter).reshape(b, nc * chunk, h, p)
     return y[:, :s]
@@ -115,8 +116,8 @@ def ssd_final_state(x, dt, A, bmat, chunk: int) -> torch.Tensor:
     bc = bmat.reshape(b, nc, chunk, n)
     cs = torch.cumsum(dtc * A, dim=2)
     decay_to_end = torch.exp(cs[:, :, -1:, :] - cs)
-    states = torch.einsum("bcjn,bcjhp->bchpn", bc,
-                          xc * (dtc * decay_to_end)[..., None])
+    states = einsum("bcjn,bcjhp->bchpn", bc,
+                    xc * (dtc * decay_to_end)[..., None])
     chunk_decay = torch.exp(cs[:, :, -1, :])
     hstate = torch.zeros((b, h, p, n), dtype=x.dtype, device=x.device)
     for c in range(nc):
@@ -138,7 +139,7 @@ def ssm_mixer(cfg: ModelConfig, p, xin: torch.Tensor, *,
     ``kernels.ops.ssd_scan`` (the Hopper kernel for CUDA tensors, its plain
     version for CPU tensors)."""
     s = cfg.ssm
-    zxbcdt = torch.einsum("bsd,de->bse", xin, p["in_proj"])
+    zxbcdt = einsum("bsd,de->bse", xin, p["in_proj"])
     z, x, bmat, cmat, dt = _split_proj(cfg, zxbcdt)
     xbc_pre = torch.cat([x, bmat, cmat], -1)
     xbc = _causal_conv(xbc_pre, p["conv_w"])
@@ -153,10 +154,10 @@ def ssm_mixer(cfg: ModelConfig, p, xin: torch.Tensor, *,
         y = kops.ssd_scan(x, dt, A, bmat.float(), cmat.float(), chunk=s.chunk)
     else:
         y = ssd_chunked(x, dt, A, bmat.float(), cmat.float(), s.chunk)
-    y = y + x * p["D"][None, None, :, None]
+    y = gather_dims(y + x * p["D"][None, None, :, None], (3,))
     y = y.reshape(bsz, slen, di).to(xin.dtype)
     y = _gated_norm(y, z, p["norm"], cfg.norm_eps)
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    out = einsum("bse,ed->bsd", y, p["out_proj"])
     if not return_state:
         return out
     hfinal = ssd_final_state(x, dt, A, bmat.float(), s.chunk)
@@ -172,7 +173,7 @@ def ssm_decode_step(cfg: ModelConfig, p, xin: torch.Tensor,
     (B,H,P,N) f32 and ``conv_state`` (B, d_conv-1, C) are advanced by one
     token **in place**."""
     s = cfg.ssm
-    zxbcdt = torch.einsum("bsd,de->bse", xin, p["in_proj"])
+    zxbcdt = einsum("bsd,de->bse", xin, p["in_proj"])
     z, x, bmat, cmat, dt = _split_proj(cfg, zxbcdt)
     xbc_new = torch.cat([x, bmat, cmat], -1)                   # (B,1,C)
     window = torch.cat([conv_state, xbc_new], dim=1)           # (B,K,C)
@@ -186,9 +187,9 @@ def ssm_decode_step(cfg: ModelConfig, p, xin: torch.Tensor,
     A = -torch.exp(p["A_log"].float())
     decay = torch.exp(dtt * A)                                  # (B,H)
     h_state.mul_(decay[..., None, None]).add_(
-        torch.einsum("bh,bn,bhp->bhpn", dtt, bt, xt))
-    y = torch.einsum("bn,bhpn->bhp", ct, h_state)
-    y = y + xt * p["D"][None, :, None]
+        einsum("bh,bn,bhp->bhpn", dtt, bt, xt))
+    y = einsum("bn,bhpn->bhp", ct, h_state)
+    y = gather_dims(y + xt * p["D"][None, :, None], (2,))
     y = y.reshape(xin.shape[0], 1, di).to(xin.dtype)
     y = _gated_norm(y, z, p["norm"], cfg.norm_eps)
-    return torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    return einsum("bse,ed->bsd", y, p["out_proj"])

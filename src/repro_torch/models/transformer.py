@@ -34,14 +34,18 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import runtime_flags
 from repro_torch.configs.base import ATTN, CROSS, HYBRID, SSM, SWA, ModelConfig
 from repro_torch.kernels.quant import (dequantize, dequantize_kv, leaf,
                                        quantize_kv)
+from repro_torch.launch.mesh import axis_sizes, batch_axes
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.cache import init_cache
 from repro_torch.models.layers import apply_rope, embed, rms_norm, swiglu, unembed
 from repro_torch.models.moe import moe_ffn
+from repro_torch.parallel.collectives import einsum
+from repro_torch.parallel.sharding import P, constrain
 
 
 # --------------------------------------------------------------------------
@@ -160,9 +164,24 @@ def _frontend(cfg: ModelConfig, frontend):
     return frontend
 
 
+def _seq_constraint(x):
+    """Variant "seq_par": keep full-sequence activations sequence-sharded
+    over the "model" axis between layers (Megatron-SP): a DTensor ``x`` is
+    redistributed to (batch axes, "model", None) when the variant's mesh is
+    set and S divides the axis; otherwise ``x`` as it is."""
+    mesh = runtime_flags.SHARDING_OPTS.get("seq_parallel")
+    if mesh is None or x.ndim != 3 or \
+            x.shape[1] % axis_sizes(mesh)["model"] != 0:
+        return x
+    bax = batch_axes(mesh)
+    bax = bax if len(bax) > 1 else (bax[0] if bax else None)
+    return constrain(x, P(bax, "model", None), mesh)
+
+
 def _apply_layer(cfg: ModelConfig, kind: str, lp, x, positions, frontend,
                  use_kernel: bool):
     """One layer of the full forward -> (x, aux loss of its MoE or 0)."""
+    x = _seq_constraint(x)
     h = rms_norm(x, lp["pre_norm"], cfg.norm_eps)
     if kind in (ATTN, SWA):
         window = 0 if kind == ATTN else cfg.sliding_window
@@ -213,21 +232,55 @@ def _unit(params, cfg: ModelConfig, r: int, x, aux, positions, frontend,
     return x, aux
 
 
+_MATMULS = ("aten.mm", "aten.addmm", "aten.bmm", "aten.baddbmm")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The ``"dots"`` remat policy (``jax.checkpoint_policies.
+    dots_with_no_batch_dims_saveable``): save the output of every product
+    with no batch dims, recompute the rest.  ``torch.einsum`` lowers a
+    product to ``mm`` or to ``bmm``, and lowers one with no batch letter to
+    a ``bmm`` whose batch is 1; so the rule is: ``mm``/``addmm`` (2-D
+    operands), and ``bmm``/``baddbmm`` (3-D operands) whose leading dim is
+    1, are saved; a ``bmm`` over a real batch (attention's scores and
+    values, batch x heads) is recomputed, as is every other op."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    name = str(op._overloadpacket) if hasattr(op, "_overloadpacket") else ""
+    if name in _MATMULS:
+        a = args[1] if name in ("aten.addmm", "aten.baddbmm") else args[0]
+        if a.ndim == 2 or a.shape[0] == 1:
+            return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpoint_kwargs():
+    """Extra ``checkpoint`` arguments for the variant's remat policy:
+    none for full remat, the selective ``"dots"`` context otherwise."""
+    if runtime_flags.SHARDING_OPTS.get("remat_policy") != "dots":
+        return {}
+    import functools
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _dots_policy)}
+
+
 def _layers(params, cfg: ModelConfig, tokens: torch.Tensor, frontend,
             use_kernel: bool, remat: bool = False):
     """(hidden states after the last layer, the summed aux loss).  With
     ``remat`` each unit is checkpointed, as the JAX package's
     ``jax.checkpoint(unit_body)`` does: only the units' inputs are saved for
-    the backward, which runs each unit's forward again.  (The JAX package's
-    ``"dots"`` policy, set through its ``runtime_flags``, is not ported.)"""
+    the backward, which runs each unit's forward again -- or, under the
+    variant's ``remat_policy="dots"``, only the ops :func:`_dots_policy`
+    does not save."""
     x = _embed(params, cfg, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    ckpt = _checkpoint_kwargs() if remat else {}
     for r in range(cfg.repeats):
         if remat:
             x, aux = torch.utils.checkpoint.checkpoint(
                 _unit, params, cfg, r, x, aux, positions, frontend,
-                use_kernel, use_reentrant=False)
+                use_kernel, use_reentrant=False, **ckpt)
         else:
             x, aux = _unit(params, cfg, r, x, aux, positions, frontend,
                            use_kernel)
@@ -299,7 +352,7 @@ def _prefill_layer(cfg: ModelConfig, kind: str, lp, x, positions, frontend,
         else:
             out = attn_mod.chunked_attention(q, k, v, positions, positions,
                                              causal=True, window=window)
-        a_out = torch.einsum("bshk,hkd->bsd", out, lp["wo"])
+        a_out = einsum("bshk,hkd->bsd", out, lp["wo"])
         for name, t in (("k", k), ("v", v)):
             if "k_scale" in entry:
                 # the JAX package quantizes the whole zero-filled buffer,
@@ -318,8 +371,8 @@ def _prefill_layer(cfg: ModelConfig, kind: str, lp, x, positions, frontend,
         # the frontend's keys and values are the layer's whole cache
         q, k, v = attn_mod.project_qkv(cfg, lp, h,
                                        kv_src=_frontend(cfg, frontend))
-        a_out = torch.einsum("bshk,hkd->bsd", attn_mod.attend_all(q, k, v),
-                             lp["wo"])
+        a_out = einsum("bshk,hkd->bsd", attn_mod.attend_all(q, k, v),
+                       lp["wo"])
         if k.shape[1] != entry["k"].shape[1]:
             raise ValueError(f"prefill: a frontend of {k.shape[1]} tokens, "
                              f"the config's is {entry['k'].shape[1]}")
@@ -343,22 +396,26 @@ def _at(cache, i: int, r: int):
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
             frontend: Optional[torch.Tensor] = None, *,
-            use_kernel: bool = False, quantize_cache: bool = False
-            ) -> Tuple[torch.Tensor, Any]:
+            use_kernel: bool = False, quantize_cache: bool = False,
+            cache=None) -> Tuple[torch.Tensor, Any]:
     """Run the prompt tokens (B,S) and return (last-token logits (B,Vpad),
     cache) with room for ``max_len`` positions.  ``quantize_cache`` stores
     K/V as int8 with per-slot, per-head scales; decode then dequantizes on
     read.  ``use_kernel`` runs the SSM scans on the ``ssd_scan`` kernel.  A
     cross-attention layer caches the keys and values of ``frontend``
-    (B,F,fdim), which decode reads at every step."""
+    (B,F,fdim), which decode reads at every step.  ``cache`` is a
+    zero-filled tree of ``init_cache``'s layout to fill in place (a sharded
+    step passes one placed as ``parallel.sharding.cache_specs`` says),
+    default a new one on the tokens' device."""
     b, s = tokens.shape
     if s > max_len and ATTN in cfg.pattern:
         raise ValueError(f"prefill: a prompt of {s} tokens does not fit a "
                          f"{max_len}-slot cache")
     x = _embed(params, cfg, tokens)
     positions = torch.arange(s, device=tokens.device)
-    cache = init_cache(cfg, b, max_len, x.dtype, quantized=quantize_cache,
-                       device=tokens.device)
+    if cache is None:
+        cache = init_cache(cfg, b, max_len, x.dtype,
+                           quantized=quantize_cache, device=tokens.device)
     for r in range(cfg.repeats):
         for i, kind in enumerate(cfg.pattern):
             x = _prefill_layer(cfg, kind, _layer_params(params, i, r), x,
@@ -380,7 +437,7 @@ def _decode_layer(cfg: ModelConfig, kind: str, lp, entry, x, pos: int,
     if kind == CROSS:
         # q only; every frontend slot of the cache, dense, as in the JAX
         # package
-        q = torch.einsum("bsd,dhk->bshk", h, lp["wq"])
+        q = einsum("bsd,dhk->bshk", h, lp["wq"])
         if cfg.qk_norm:
             q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
         kc, vc = entry["k"], entry["v"]
@@ -390,7 +447,7 @@ def _decode_layer(cfg: ModelConfig, kind: str, lp, entry, x, pos: int,
         out = attn_mod.dense_attention(
             q, kc, vc, torch.arange(1, device=h.device),
             torch.arange(kc.shape[1], device=h.device), causal=False)
-        a_out = torch.einsum("bshk,hkd->bsd", out, lp["wo"])
+        a_out = einsum("bshk,hkd->bsd", out, lp["wo"])
     if kind in (SSM, HYBRID):
         m_out = ssm_mod.ssm_decode_step(cfg, lp, h, entry["h"], entry["conv"])
     return _apply_mlp(cfg, lp, _add_mixers(kind, x, a_out, m_out))[0]

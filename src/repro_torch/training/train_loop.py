@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import forward
+from repro_torch.parallel.collectives import is_dtensor
 from repro_torch.training import optimizer as opt
 from repro_torch.training import tree as T
 
@@ -37,7 +38,17 @@ def loss_fn(params, cfg: ModelConfig, tokens, labels, frontend=None, *,
     logp = torch.log_softmax(logits, dim=-1)
     mask = (labels >= 0).float()
     safe = torch.clamp(labels, min=0).long()
-    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    if is_dtensor(logp):
+        # the label's log-probability as a select and a sum over the
+        # vocabulary (one term is not zero, so the value is the gather's):
+        # a gather's backward under DTensor allocates a zero tensor of the
+        # global logits' shape on every rank
+        hit = torch.arange(logp.shape[-1],
+                           device=logp.device) == safe[..., None]
+        nll = -torch.where(hit, logp,
+                           torch.zeros((), device=logp.device)).sum(-1)
+    else:
+        nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return ce + aux, {"ce": ce, "aux": aux}
 
@@ -98,7 +109,18 @@ def loss_and_grads(params, cfg: ModelConfig, batch: Dict[str, Any], *,
     finally:
         for p in leaves:
             p.requires_grad_(False)
-    return loss, metrics, T.unflatten(params, grads)
+    return loss, metrics, T.unflatten(params, [
+        _like(g, p) for g, p in zip(grads, leaves)])
+
+
+def _like(g, p):
+    """A DTensor parameter's gradient placed as the parameter is: the
+    pending sum over the batch axes is reduced here (all-reduce, or
+    reduce-scatter onto a sharded parameter).  Plain tensors pass."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(p, DTensor):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig, *,

@@ -1,6 +1,7 @@
-"""The port's examples stay runnable: compile both, and run
+"""The port's examples stay runnable: compile each, run
 ``torch_generate.py --cpu`` at the size of
-tests/test_examples.py::test_generate_runs."""
+tests/test_examples.py::test_generate_runs and
+``torch_allocation_search.py`` as test_allocation_search_runs does."""
 import os
 import py_compile
 import subprocess
@@ -11,7 +12,8 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = __file__.rsplit("/tests", 1)[0]
-EXAMPLES = ["torch_train_lm.py", "torch_generate.py"]
+EXAMPLES = ["torch_train_lm.py", "torch_generate.py", "torch_quickstart.py",
+            "torch_serve_ensemble.py", "torch_allocation_search.py"]
 # one torch thread: beside the suite's other workers, one a core
 # oversubscribes the host
 ENV = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
@@ -21,6 +23,17 @@ ENV = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
 @pytest.mark.parametrize("name", EXAMPLES)
 def test_example_compiles(name):
     py_compile.compile(os.path.join(ROOT, "examples", name), doraise=True)
+
+
+def test_allocation_search_runs():
+    out = subprocess.run(
+        [sys.executable,
+         os.path.join(ROOT, "examples", "torch_allocation_search.py"),
+         "--ensemble", "ENS4", "--gpus", "2", "--max-iter", "2",
+         "--max-neighs", "10"],
+        capture_output=True, text=True, timeout=300, env=ENV)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "Algorithm 2" in out.stdout
 
 
 def test_generate_runs_on_the_cpu():

@@ -51,7 +51,12 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.serving.sim.forecast",
               "repro_torch.serving.sim.service",
               "repro_torch.serving.sim.traces",
-              "repro_torch.serving.sim.tuner"):
+              "repro_torch.serving.sim.tuner", "repro_torch.runtime_flags",
+              "repro_torch.launch.mesh", "repro_torch.launch.steps",
+              "repro_torch.launch.dryrun", "repro_torch.launch.hlo_analysis",
+              "repro_torch.launch.roofline", "repro_torch.parallel",
+              "repro_torch.parallel.sharding",
+              "repro_torch.parallel.collectives"):
         assert m in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -134,17 +139,18 @@ def test_the_train_launcher_runs_on_the_cpu_when_asked(tmp_path):
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.count("loss") == 2
     assert (tmp_path / "ck" / "step_2" / "arrays.npz").exists()
-    # the pod path and --dry-run wait for the parallel tooling
-    for extra in ([], ["--dry-run"]):
+    # the pod path runs on the card unless asked for the CPU, and the
+    # 2-pod mesh needs its 512 ranks
+    if not torch.cuda.is_available():
         out = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train", *extra],
-            capture_output=True, text=True, timeout=300, cwd=tmp_path,
+            [sys.executable, "-m", "repro_torch.launch.train", "--steps",
+             "1"], capture_output=True, text=True, timeout=300, cwd=tmp_path,
             env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-        assert out.returncode != 0 and "item 15" in out.stderr
-    # the pod path's own flags are not taken until it is ported
+        assert out.returncode != 0 and "step" not in out.stdout
+        assert "no CUDA device" in out.stderr
     out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--host-demo",
-         "--multi-pod", "--cpu"], capture_output=True, text=True,
-        timeout=300, cwd=tmp_path,
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "qwen3-1.7b-reduced", "--multi-pod", "--cpu"], capture_output=True,
+        text=True, timeout=300, cwd=tmp_path,
         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-    assert out.returncode == 2 and "--multi-pod" in out.stderr
+    assert out.returncode != 0 and "--multi-pod needs 512 ranks" in out.stderr
