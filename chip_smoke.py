@@ -38,11 +38,15 @@ Phases, one JSON line each; any failed phase exits non-zero:
    time, combined in numpy, and the launch counts must show that each
    attention or hybrid layer ran the flash kernel and each SSM or hybrid
    layer the scan kernel once per chunk, that the combine kernels ran, and
-   that no plain version did.  The capacity dispatch makes a row's answer
-   depend on the other row of its 512-token group and jump where a near
-   tie of the router flips between the flash kernel and the plain
-   attention, so for granite the plain forward runs on the workers' own
-   batches with the served run's expert choices replayed layer by layer;
+   that no plain version did.  ``h2d_staged``, the uploads that the
+   predictors started on their copy streams ahead of the forward that read
+   them, must be above 0 (``--profile`` adds the copies' streams beside
+   the kernels' and the share of copy time that overlaps a kernel).  The
+   capacity dispatch makes a row's answer depend on the other row of its
+   512-token group and jump where a near tie of the router flips between
+   the flash kernel and the plain attention, so for granite the plain
+   forward runs on the workers' own batches with the served run's expert
+   choices replayed layer by layer;
    a second plain run with its own choices reports the rows rerouted and
    the router's margin where they part.  Each system is shut down and its
    memory freed before the next pair;
@@ -104,7 +108,9 @@ Phases, one JSON line each; any failed phase exits non-zero:
    ``LiveBench`` snapshot.  Every row of every answer is held to the
    members' plain forwards on the card as in the pair phase, and the
    launch counts must show flash per attention layer per chunk, both
-   combine kernels and no plain version;
+   combine kernels and no plain version; ``h2d_staged`` and each worker's
+   copy stream (two instances share the card's one compute stream) are
+   reported;
 10. ``brownout:qwen3``: a second system on the same host trees, one cell,
    ``combine="weighted"``, member 0 slowed by a repeating ``slow`` fault,
    an admission budget of one burst's bytes and a ``LiveBench`` attached
@@ -145,12 +151,17 @@ Phases, one JSON line each; any failed phase exits non-zero:
    batch 2), 3 steps: each loss within 1e-4 (relative) of 3 plain
    ``train_step``s on the same params and batches (the AdamW update on
    DTensors shows from the second), s a step beside the plain step's and
-   ``train:qwen3``'s.  The group is destroyed after it;
+   ``train:qwen3``'s.  ``dryrun:pod``: the same step (f32, remat, 1 x 1
+   mesh) traced under ``FakeTensorMode`` by ``launch.steps.lower_step``,
+   its predicted peak (argument + temp bytes of its memory analysis) held
+   within 10 % of ``train:pod``'s measured ``max_memory_allocated``.  The
+   group is destroyed after them;
 15. ``dryrun:qwen3``: ``python -m repro_torch.launch.dryrun --arch
    qwen3-1.7b`` (train_4k, prefill_32k, decode_32k on a fake 16 x 16
    mesh, on the host, started before ``train:qwen3`` and collected here)
    and its roofline rows: FLOPs, per-rank bytes, collective bytes by type,
-   the dominant term and MODEL/traced FLOPs (PyTorch's counts, not XLA's);
+   the memory analysis, the dominant term and MODEL/traced FLOPs
+   (PyTorch's counts, not XLA's);
 16. ``example:quickstart``: ``examples/torch_quickstart.py`` as a
    subprocess on two cells of the card, rc 0.
 
@@ -866,7 +877,56 @@ def profile_served(torch, system, X, n_req: int, rows: int,
         serve(system, X, n_req, rows)
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
-    emit({"phase": f"profile:{pair}", **device_time(prof, window)})
+    emit({"phase": f"profile:{pair}", **device_time(prof, window),
+          "h2d": copy_overlap(prof)})
+
+
+def copy_overlap(prof) -> dict:
+    """The host-to-device copies of a profiled window beside its kernels:
+    for each stream that ran copies, their count, time and the share of
+    that time during which some kernel ran; the kernels' streams with
+    their counts.  The staged uploads run on the workers' copy streams;
+    the compute stream's copies wait for its kernels."""
+    import bisect
+    from torch.autograd import DeviceType
+
+    def span(e):
+        if hasattr(e, "start_ns"):
+            return e.start_ns(), e.start_ns() + e.duration_ns()
+        return 1e3 * e.start_us(), 1e3 * (e.start_us() + e.duration_us())
+    copies, kernels = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        name = e.name()
+        if "HtoD" in name:
+            copies.setdefault(e.device_resource_id(), []).append(span(e))
+        elif not name.startswith(("Memcpy", "Memset")):
+            kernels.setdefault(e.device_resource_id(), []).append(span(e))
+    busy = []                                # kernel time, merged
+    for lo, hi in sorted(x for v in kernels.values() for x in v):
+        if busy and lo <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], hi)
+        else:
+            busy.append([lo, hi])
+    starts = [lo for lo, _ in busy]
+    out = {}
+    for stream, spans in sorted(copies.items()):
+        copy_ns = overlap_ns = 0.0
+        for lo, hi in spans:
+            copy_ns += hi - lo
+            i = max(0, bisect.bisect_right(starts, lo) - 1)
+            while i < len(busy) and busy[i][0] < hi:
+                overlap_ns += max(0.0, min(hi, busy[i][1]) -
+                                  max(lo, busy[i][0]))
+                i += 1
+        out[str(stream)] = {
+            "copies": len(spans), "copy_ms": copy_ns * 1e-6,
+            "share_overlapping_a_kernel":
+                overlap_ns / copy_ns if copy_ns else None}
+    return {"copy_streams": out,
+            "kernel_streams": {str(k): len(v)
+                               for k, v in sorted(kernels.items())}}
 
 
 def device_time(prof, window: float) -> dict:
@@ -1246,6 +1306,9 @@ def phase_pair(torch, name: str, layers, int8_layers: int, seed: int,
                  f"elements")
     if any(plain.values()):
         fail(f"{name}: plain versions ran on the served path: {plain}")
+    staged = counters.get("h2d_staged", 0)
+    if not staged:
+        fail(f"{name}: no staged upload was used ({counters})")
     # every dispatched chunk runs its member's forward once: one flash launch
     # per attention or hybrid layer, one scan launch per SSM or hybrid layer
     minima = {"flash_attention": 0, "ssd_scan": 0}
@@ -1303,7 +1366,8 @@ def phase_pair(torch, name: str, layers, int8_layers: int, seed: int,
                      for k, c in checks.items()},
           "elements": int(Y.size),
           "launches": launches, "launch_minima": minima, "plain_calls": plain,
-          "batches": counters.get("batches"), "stage_total_s": stages,
+          "batches": counters.get("batches"), "h2d_staged": staged,
+          "stage_total_s": stages,
           "padding_efficiency": counters.get("padding_efficiency")})
     return launches
 
@@ -1905,6 +1969,7 @@ FD_STEP_TOL = 1e-4                      # x max(1, max |ref|), PERF.md §2
 POD_SHAPE = "pod_smoke"                 # registered by train:pod
 POD_SEQ, POD_BATCH, POD_STEPS = 4096, 2, 3
 POD_LOSS_RTOL = 1e-4
+POD_PEAK_RTOL = 0.10                    # dryrun:pod's predicted peak
 DRYRUN_ARCH = "qwen3-1.7b"              # train_4k, prefill_32k, decode_32k
 DRYRUN_TIMEOUT_S = 600
 QUICKSTART_TIMEOUT_S = 600
@@ -2098,6 +2163,11 @@ def phase_control(torch, seed: int, smi: str) -> dict:
         launches = ops.kernel_launches()
         plain = ops.plain_calls()
         counters = system.serving_counters()
+        copy_streams = {w.worker_id: w._copy.stream_id
+                        for w in system.workers}
+        if len(set(copy_streams.values())) != len(copy_streams):
+            fail(f"control:qwen3: workers share a copy stream: "
+                 f"{copy_streams}")
         metrics = front["metrics"]
         live = ctl.live.snapshot()
         live["segment_time_s"] = {
@@ -2183,6 +2253,8 @@ def phase_control(torch, seed: int, smi: str) -> dict:
                           "worker_crashes": counters.get("worker_crashes"),
                           "quality": quality},
           "livebench": live, "peak_device_gb": peak_gb,
+          "h2d_staged": counters.get("h2d_staged", 0),
+          "copy_streams": copy_streams,
           "device_gb_after_shutdown": gb_after_shutdown,
           "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
           "checks": checks, "launches": launches, "launch_minima": minima,
@@ -2599,9 +2671,10 @@ def phase_parallel(torch, seed: int, smi: str) -> dict:
     return launches
 
 
-def phase_pod(torch, seed: int, smi: str, train_step_s: float) -> None:
+def phase_pod(torch, seed: int, smi: str, train_step_s: float) -> int:
     """``train:pod``: the training launcher's pod path in process on the
-    world-size-1 group (see the module docstring)."""
+    world-size-1 group (see the module docstring).  Returns its peak
+    device bytes."""
     import repro_torch.configs as C
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLM
@@ -2635,7 +2708,8 @@ def phase_pod(torch, seed: int, smi: str, train_step_s: float) -> None:
         torch.cuda.reset_peak_memory_stats(dev)
         history = train_pod(TRAIN_MODEL, POD_SHAPE, steps=POD_STEPS,
                             seed=seed, log=lambda m: None)
-        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        peak = torch.cuda.max_memory_allocated(dev)
+        peak_gb = peak / 1e9
     finally:
         del C.INPUT_SHAPES[POD_SHAPE]
         gc.collect()
@@ -2664,6 +2738,48 @@ def phase_pod(torch, seed: int, smi: str, train_step_s: float) -> None:
           "train_qwen3_step_s_median": train_step_s,
           "train_qwen3_tokens_per_step": TRAIN_BATCH * TRAIN_SEQ,
           "tokens_per_step": POD_BATCH * POD_SEQ})
+    return peak
+
+
+def phase_dryrun_pod(torch, smi: str, measured: int) -> None:
+    """``dryrun:pod``: ``train:pod``'s step traced as the dry-run traces
+    it (``FakeTensorMode``, nothing allocated) at the pod path's own dtype,
+    shape, remat and mesh; its predicted peak, argument + temp bytes, held
+    to the ``measured`` peak."""
+    import repro_torch.configs as C
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import lower_step
+    from repro_torch.launch.train import pod_mesh
+
+    cfg = get_config(TRAIN_MODEL)
+    C.INPUT_SHAPES[POD_SHAPE] = dict(seq_len=POD_SEQ, global_batch=POD_BATCH,
+                                     kind="train")
+    try:
+        t0 = time.perf_counter()
+        traced = lower_step(cfg, POD_SHAPE, pod_mesh(False),
+                            param_dtype=torch.float32, remat=True)
+        trace_s = time.perf_counter() - t0
+        mem = traced.memory_analysis()
+        del traced
+    finally:
+        del C.INPUT_SHAPES[POD_SHAPE]
+    predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    ratio = predicted / measured
+    if abs(ratio - 1) > POD_PEAK_RTOL:
+        fail(f"dryrun:pod: predicted peak {predicted / 1e9:.3f} GB, "
+             f"measured {measured / 1e9:.3f} GB (ratio {ratio:.4f}, "
+             f"allowed 1 +- {POD_PEAK_RTOL}): {mem}")
+    emit({"phase": "dryrun:pod", "ok": True, "card": smi,
+          "model": cfg.name, "mesh": {"data": 1, "model": 1},
+          "seq": POD_SEQ, "global_batch": POD_BATCH, "dtype": "float32",
+          "remat": True, "trace_s": trace_s, "memory_analysis": mem,
+          "predicted_peak_gb": predicted / 1e9,
+          "measured_peak_gb": measured / 1e9, "ratio": ratio,
+          "rtol": POD_PEAK_RTOL,
+          "note": "predicted: the eager step's peak of live storage "
+                  "bytes (argument + temp), every step alike (the AdamW "
+                  "state is an argument); measured: "
+                  "torch.cuda.max_memory_allocated over train:pod's 3 steps"})
 
 
 def start_dryrun(out_dir: str):
@@ -2711,10 +2827,7 @@ def phase_dryrun(started, out_dir: str, smi: str) -> None:
               "flops": rows[s].hlo_flops,
               "flops_per_rank": recs[s]["flops_per_rank"],
               "bytes_accessed_per_rank": recs[s]["bytes_accessed_per_rank"],
-              "argument_bytes_per_rank":
-                  recs[s]["memory"]["argument_bytes_per_rank"],
-              "output_bytes_per_rank":
-                  recs[s]["memory"]["output_bytes_per_rank"],
+              "memory_analysis": recs[s]["memory_analysis"],
               "collective_bytes_per_rank": recs[s]["collectives"]["bytes"],
               "collective_counts": recs[s]["collectives"]["counts"],
               "compute_s": rows[s].compute_s, "memory_s": rows[s].memory_s,
@@ -2832,13 +2945,14 @@ def main(argv=None) -> int:
     phase_train_step(torch, args.seed, smi)
 
     # 13-15. flash_decode and the pod training path on a world-size-1 nccl
-    # group (destroyed before the control phases), then the dry-run's
-    # records
+    # group (destroyed before the control phases), its step's predicted
+    # peak, then the dry-run's records
     import torch.distributed as dist
     try:
         for k, v in phase_parallel(torch, args.seed, smi).items():
             launches[k] = launches.get(k, 0) + v
-        phase_pod(torch, args.seed, smi, train_step_s)
+        pod_peak = phase_pod(torch, args.seed, smi, train_step_s)
+        phase_dryrun_pod(torch, smi, pod_peak)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

@@ -12,12 +12,18 @@ once and move nothing, and ``steps.lower_step`` traces under
 ``FakeTensorMode``, so nothing is allocated either.  The group is
 process-wide (as the JAX dry-run's ``XLA_FLAGS`` are), so run this module
 in a process of its own.  One JSON per combo is written under
-``experiments/dryrun_torch/``: FLOPs, this rank's bytes of arguments and
-outputs, bytes accessed, collective bytes by type, the op histogram.  The FLOPs and
-collective bytes are PyTorch's counts of the ops one rank runs
-(``launch/hlo_analysis.py``), not XLA's, and do not compare with the JAX
-dry-run's.  The JAX record's ``memory_analysis`` temp size has no
-counterpart here (see ``PERF.md``).
+``experiments/dryrun_torch/``: FLOPs, bytes accessed, collective bytes by
+type, the op histogram, and ``memory_analysis`` under the JAX record's field
+names, all per rank: ``argument_size_in_bytes`` and
+``output_size_in_bytes`` (this rank's shards), ``temp_size_in_bytes`` (the
+peak of live storage bytes during one step, less the arguments': so
+``argument + temp`` is the rank's peak) and ``alias_size_in_bytes`` (outputs
+in an argument's storage: the in-place AdamW update).
+``generated_code_size_in_bytes`` is left out: eager PyTorch runs no
+compiled program.  Every figure is PyTorch's count of the ops one rank runs
+(``launch/hlo_analysis.py``), not XLA's: the peak is the eager sequence's,
+not XLA's buffer assignment, and none of them compares with the JAX
+dry-run's.
 """
 from __future__ import annotations
 
@@ -84,8 +90,7 @@ def run_one(arch: str, shape: str, mesh_kind: str = "single", *,
         rec["bytes_accessed_per_rank"] = float(
             hlo_analysis.bytes_accessed(trace))
         rec["global_cost"] = {"flops": rec["flops_per_rank"] * n}
-        rec["memory"] = {"argument_bytes_per_rank": traced.argument_bytes,
-                         "output_bytes_per_rank": traced.output_bytes}
+        rec["memory_analysis"] = traced.memory_analysis()
         rec["collectives"] = hlo_analysis.collective_bytes(trace)
         rec["op_histogram"] = hlo_analysis.op_histogram(trace)
         rec["ops"] = len(trace)

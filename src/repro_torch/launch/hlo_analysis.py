@@ -16,6 +16,11 @@ itself counts a DTensor op once, on its global shapes, and misses the local
 ops DTensor runs inside it, so a step that mixes DTensor ops and local
 products would be counted partly global and partly per rank.)
 
+The same pass follows the step's memory: each storage an op allocates is
+live from that op until its last tensor dies, so the peak of live bytes is
+the eager sequence's own (:class:`Memory`).  It is not XLA's buffer
+assignment and does not compare with the JAX dry-run's figure.
+
 The JAX module's ``while_trip_counts`` has no counterpart: the port's layer
 stack is a Python loop, so a trace holds every layer's ops and nothing is
 hidden in a loop body to scale.
@@ -23,8 +28,9 @@ hidden in a loop body to scale.
 from __future__ import annotations
 
 import contextlib
+import weakref
 from collections import defaultdict
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List
 
 import torch
@@ -55,6 +61,11 @@ _OUT_ONLY = {"aten.zeros", "aten.ones", "aten.full", "aten.zeros_like",
              "aten.new_ones", "aten.new_full", "aten.arange",
              "aten.scalar_tensor"}
 
+# ops whose result is their input's buffer: a new storage they return (fake
+# tensors give ``wait_tensor`` one) is the input's allocation, not another
+_SAME_BUFFER = {"_c10d_functional.wait_tensor",
+                "_c10d_functional._wrap_tensor_autograd"}
+
 
 @dataclass
 class TracedOp:
@@ -77,11 +88,71 @@ def _bytes(tree) -> int:
                if isinstance(t, torch.Tensor))
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def storage_ids(tree) -> set:
+    """Ids of the storages under ``tree``'s tensors (a DTensor's local
+    shard's)."""
+    return {id(_local(t).untyped_storage()) for t in tree_leaves(tree)
+            if isinstance(t, torch.Tensor)}
+
+
+@dataclass
+class Memory:
+    """One rank's live storage bytes over a recorded run: ``peak`` is the
+    most that the storages its ops allocated held at once (the bytes that
+    existed before the run, such as its arguments, not included)."""
+    live: int = 0
+    peak: int = 0
+    counted: set = field(default_factory=set)   # ids of the live storages
+
+    def alloc(self, storage) -> None:
+        key, n = id(storage), storage.nbytes()
+        self.counted.add(key)
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        weakref.finalize(storage, self.free, key, n)
+
+    def free(self, key: int, n: int) -> None:
+        self.counted.discard(key)
+        self.live -= n
+
+
 class _Recorder(TorchDispatchMode):
-    def __init__(self, trace: List[TracedOp]):
+    def __init__(self, trace: List[TracedOp], memory: Memory):
         super().__init__()
         self.trace = trace
+        self.memory = memory
+        self.held: dict = {}           # id -> the storage it stands for
         self.paused = 0
+
+    def _track(self, name: str, args, out) -> None:
+        """Count each storage that ``out`` holds and that neither an
+        input of the op (a view, an in-place op) nor an earlier op gave it:
+        one storage is one allocation, whatever views share it."""
+        seen = None
+        for t in tree_leaves(out):
+            if not isinstance(t, torch.Tensor):
+                continue
+            st = t.untyped_storage()
+            key = id(st)
+            if key in self.memory.counted or key in self.held:
+                continue
+            if seen is None:
+                seen = storage_ids(args)
+            if key in seen:
+                continue
+            if name in _SAME_BUFFER:
+                # the input's allocation lives as long as this result
+                src = [a for a in tree_leaves(args)
+                       if isinstance(a, torch.Tensor)][0]
+                self.held[key] = src.untyped_storage()
+                weakref.finalize(st, self.held.pop, key)
+                continue
+            self.memory.alloc(st)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -93,10 +164,11 @@ class _Recorder(TorchDispatchMode):
         if self.paused:
             return out
         packet = func._overloadpacket
+        name = str(packet)
+        self._track(name, (args, kwargs), out)
         flops = 0
         if packet in flop_registry:
             flops = int(flop_registry[packet](*args, **kwargs, out_val=out))
-        name = str(packet)
         moves = not (func.is_view or name in _NO_DATA)
         self.trace.append(TracedOp(
             name, _bytes(out) if moves else 0, flops,
@@ -130,14 +202,21 @@ def _pause_during_propagation(rec: _Recorder):
         delattr(prop, name)       # the class's method again
 
 
+def record_with_memory(fn: Callable, *args, **kwargs):
+    """Run ``fn(*args, **kwargs)`` -> (its result, the list of
+    :class:`TracedOp` one rank ran, its :class:`Memory`)."""
+    trace: List[TracedOp] = []
+    memory = Memory()
+    rec = _Recorder(trace, memory)
+    with _pause_during_propagation(rec), rec:
+        out = fn(*args, **kwargs)
+    return out, trace, memory
+
+
 def record(fn: Callable, *args, **kwargs):
     """Run ``fn(*args, **kwargs)`` -> (its result, the list of
     :class:`TracedOp` one rank ran)."""
-    trace: List[TracedOp] = []
-    rec = _Recorder(trace)
-    with _pause_during_propagation(rec), rec:
-        out = fn(*args, **kwargs)
-    return out, trace
+    return record_with_memory(fn, *args, **kwargs)[:2]
 
 
 def _collective(op: str):

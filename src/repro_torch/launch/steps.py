@@ -15,6 +15,14 @@ the traced run -- every op of every rank-local shard and every collective
 DTensor needed -- is the dry-run's proof that the step shards, and the
 record it returns stands in for JAX's ``Lowered``.  The step runs the plain
 path (``use_kernel=False``), as the JAX dry-run lowers the plain path too.
+
+The record's bytes are one rank's, in the field names of XLA's memory
+analysis: arguments and outputs (local shards), ``temp`` -- the peak of
+live storage bytes during the step less the arguments' -- and ``alias``,
+the outputs that share an argument's storage (the AdamW update runs in
+place).  So ``argument + temp`` is the rank's predicted peak for one step.
+The optimizer's state is an argument (``optimizer.init`` makes it before
+the first step), so every training step has this peak, the first too.
 """
 from __future__ import annotations
 
@@ -119,11 +127,22 @@ def build_decode_step(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 @dataclass
 class Traced:
-    """What :func:`lower_step` returns in place of JAX's ``Lowered``."""
+    """What :func:`lower_step` returns in place of JAX's ``Lowered``; the
+    bytes are this rank's (see the module docstring)."""
     kind: str
     trace: List[hlo_analysis.TracedOp] = field(repr=False)
     argument_bytes: int        # this rank's shards of the step's inputs
     output_bytes: int          # ... and of its outputs
+    temp_bytes: int            # peak live bytes during the step - arguments
+    alias_bytes: int           # outputs in an argument's storage
+
+    def memory_analysis(self) -> Dict[str, int]:
+        """XLA's field names; ``generated_code_size_in_bytes`` has no
+        counterpart, as eager PyTorch runs no compiled program."""
+        return {"argument_size_in_bytes": self.argument_bytes,
+                "output_size_in_bytes": self.output_bytes,
+                "temp_size_in_bytes": self.temp_bytes,
+                "alias_size_in_bytes": self.alias_bytes}
 
 
 def _local_bytes(tree) -> int:
@@ -137,10 +156,23 @@ def _local_bytes(tree) -> int:
     return total
 
 
+def _alias_bytes(out, args) -> int:
+    """Bytes of the outputs whose storage is an argument's."""
+    inputs = hlo_analysis.storage_ids(args)
+    return sum(_local_bytes(t) for t in T.leaves(out)
+               if isinstance(t, torch.Tensor)
+               and hlo_analysis.storage_ids(t) <= inputs)
+
+
 def lower_step(cfg: ModelConfig, shape_name: str, mesh, *,
-               param_dtype=torch.bfloat16, remat: bool = True) -> Traced:
+               param_dtype=torch.bfloat16, remat: bool = True,
+               fake: bool = True) -> Traced:
     """Trace the (cfg, shape) step on ``mesh`` (a ``DeviceMesh``), sharded
-    by the rules, under ``FakeTensorMode``; see the module docstring."""
+    by the rules, under ``FakeTensorMode``; see the module docstring.
+    ``fake=False`` runs the same step on real (uninitialized) tensors of
+    the mesh's device, which the tests hold the fake trace's bytes to."""
+    import contextlib
+
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -151,7 +183,8 @@ def lower_step(cfg: ModelConfig, shape_name: str, mesh, *,
     bspec = {"tokens": shd.batch_spec(mesh, b, 2),
              "labels": shd.batch_spec(mesh, b, 2),
              "frontend": shd.batch_spec(mesh, b, 3)}
-    with FakeTensorMode(), implicit_replication():
+    mode = FakeTensorMode() if fake else contextlib.nullcontext()
+    with mode, implicit_replication():
         specs = input_specs(cfg, shape_name, param_dtype=param_dtype,
                             device=device)
         one = lambda t, spec: shd.place([t], [spec], mesh)[0]
@@ -182,8 +215,9 @@ def lower_step(cfg: ModelConfig, shape_name: str, mesh, *,
         # made under another trace's fake mode cannot be reused in this one
         slot_valid.cache_clear()
         try:
-            out, trace = hlo_analysis.record(fn, *args)
+            out, trace, memory = hlo_analysis.record_with_memory(fn, *args)
         finally:
             slot_valid.cache_clear()
         return Traced(kind, trace, _local_bytes(list(args)),
-                      _local_bytes(list(out)))
+                      _local_bytes(list(out)), memory.peak,
+                      _alias_bytes(out, list(args)))

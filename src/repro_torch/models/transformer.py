@@ -25,9 +25,11 @@ Public API:
     logits_from_hidden(params, cfg, x)                   -> logits
     prefill(params, cfg, tokens, max_len, frontend, ...) -> (logits, cache)
     decode_step(params, cfg, cache, token, pos)          -> (logits, cache)
+    Model(cfg, use_kernel)                 -> init / __call__ / forward_fn
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -474,3 +476,25 @@ def decode_step(params, cfg: ModelConfig, cache, token: torch.Tensor, pos,
             x = _decode_layer(cfg, kind, _layer_params(params, i, r),
                               _at(cache, i, r), x, pos, use_kernel)
     return logits_from_hidden(params, cfg, x[:, 0]), cache
+
+
+# --------------------------------------------------------------------------
+# Convenience object used by serving / examples
+# --------------------------------------------------------------------------
+class Model:
+    """Thin functional wrapper binding a config to the apply functions."""
+
+    def __init__(self, cfg: ModelConfig, use_kernel: bool = False):
+        self.cfg = cfg
+        self.use_kernel = use_kernel
+
+    def init(self, seed: int, device="cuda", dtype=torch.float32):
+        return init_params(self.cfg, seed, device, dtype)
+
+    def __call__(self, params, tokens, frontend=None):
+        return forward(params, self.cfg, tokens, frontend,
+                       use_kernel=self.use_kernel)
+
+    def forward_fn(self):
+        return functools.partial(forward, cfg=self.cfg,
+                                 use_kernel=self.use_kernel)

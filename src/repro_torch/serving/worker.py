@@ -8,13 +8,14 @@ Faithful to paper Fig. 2 — three asynchronous threads per worker:
 
 Hardware adaptation (DESIGN.md §2): the paper uses one OS process per worker
 (TF1 sessions hold the GIL); here the forward runs eagerly and, on the card,
-only enqueues kernels on the device's current stream (one stream in this
-slice) and returns, so threads + per-worker queues give the same overlap
-without IPC serialization overhead.  The JAX package's mechanisms map so:
-``jax.jit`` with pow2 buckets -> an eager call at the same ``bucket_for``
-shapes; ``device_put`` -> ring slots in pinned host memory copied with
-``.to(device, non_blocking=True)``; ``block_until_ready`` -> a CUDA event
-recorded after the predict call and synchronised in the sender.
+only enqueues kernels on the device's current stream (the compute stream,
+shared by every worker on the card) and returns, so threads + per-worker
+queues give the same overlap without IPC serialization overhead.  The JAX
+package's mechanisms map so: ``jax.jit`` with pow2 buckets -> an eager call
+at the same ``bucket_for`` shapes; ``device_put`` -> ring slots in pinned
+host memory copied with ``.to(device, non_blocking=True)``, the staged
+uploads on the worker's own copy stream; ``block_until_ready`` -> a CUDA
+event recorded after the predict call and synchronised in the sender.
 
 Coalescing scheduler (DESIGN.md §3): the paper's batching process forms
 batches strictly within one (request, segment) pair, so heavy traffic of
@@ -325,6 +326,9 @@ class Worker:
                                     pin_memory=self._cuda)
                         for _ in range(RING_SLOTS)]
         self._ring = [t.numpy() for t in self._ring_t]
+        # the predictor's staged uploads run here, beside the compute
+        # stream, so chunk i+1's copy overlaps chunk i's forward
+        self._copy = torch.cuda.Stream(self._device) if self._cuda else None
         self._free_slots: "queue.Queue[int]" = queue.Queue()
         for i in range(len(self._ring)):
             self._free_slots.put(i)
@@ -356,6 +360,12 @@ class Worker:
                 cfg, use_kernel, member_dtype=self.member_dtype,
                 quant_out=self._quant_out)
             if not fake:   # warm-up (and kernel build) so READY means servable
+                if self._copy is not None:
+                    # the copy stream's first block: allocated here, its
+                    # segment is cached before the first staged upload
+                    with torch.cuda.stream(self._copy):
+                        torch.empty(batch_size * max_seq, dtype=torch.int32,
+                                    device=self._device)
                 warm = torch.zeros((batch_size, max_seq), dtype=torch.int32,
                                    device=self._device)
                 self.predict_fn(self.params, warm, self.frontend)
@@ -382,7 +392,7 @@ class Worker:
         """Drop this worker's device tensors (parameters, frontend, pinned
         ring slots) and return the card's cached blocks.  Only for a worker
         whose threads have exited or never started."""
-        self.params = self.frontend = None
+        self.params = self.frontend = self._copy = None
         self._ring_t, self._ring = [], []
         if self._cuda:
             gc.collect()
@@ -732,6 +742,52 @@ class Worker:
         return open_batch
 
     # ---- stage 2: predictor --------------------------------------------------
+    def _upload(self, c: ChunkDesc) -> torch.Tensor:
+        """Chunk ``c``'s rows on the device, copied on the current stream.
+        A ring slot is pinned, so the copy is async; its pinned source stays
+        alive until the chunk's output has materialized (SlotRef).  A
+        side-pool buffer is pageable numpy memory: ``non_blocking`` then
+        returns only once the source has been read, so its copy is correct
+        but does not overlap.  On the CPU the result aliases the slot."""
+        if c.ref.slot is not None:
+            src = self._ring_t[c.ref.slot][c.off:c.off + c.bucket]
+        else:
+            src = torch.from_numpy(c.ref.buf[c.off:c.off + c.bucket])
+        return src.to(self._device, non_blocking=True)
+
+    def _stage(self, c: ChunkDesc) -> tuple:
+        """Start chunk ``c``'s upload ahead of its forward -> (c, buffer,
+        the copy's event); on the card it runs on this worker's copy
+        stream."""
+        if self._copy is None:
+            return c, self._upload(c), None
+        with torch.cuda.stream(self._copy):
+            x = self._upload(c)
+            ev = torch.cuda.Event()
+            ev.record(self._copy)
+        return c, x, ev
+
+    def _staged_input(self, staged: tuple) -> torch.Tensor:
+        """A staged buffer made ready for the forward: the compute stream
+        waits for the copy, and the buffer's block, allocated on the copy
+        stream, is not handed back to it before the compute stream's work
+        enqueued so far has run (else the next staged upload could
+        overwrite rows the forward still reads)."""
+        _, x, ev = staged
+        if ev is not None:
+            compute = torch.cuda.current_stream(self._device)
+            compute.wait_event(ev)
+            x.record_stream(compute)
+        return x
+
+    @staticmethod
+    def _settle(staged: Optional[tuple]) -> None:
+        """Wait for a staged copy that no forward will read: its chunk's
+        slot may be recycled, and rewritten, as soon as the sender sees
+        the chunk."""
+        if staged is not None and staged[2] is not None:
+            staged[2].synchronize()
+
     def _predictor(self):
         """Pop chunks from the priority dispatch queue and commit them to
         the device, keeping at most ``dispatch_ahead`` (K) async dispatches
@@ -769,65 +825,93 @@ class Worker:
             stop = False
             ctl = False                   # round saw a non-chunk item
             t0 = time.perf_counter()
+            # double-buffered H2D staging: after committing chunk i, chunk
+            # i+1's upload is issued at once on the copy stream, so it
+            # overlaps chunk i's compute instead of serializing upload ->
+            # compute per chunk.  One buffer deep: the SlotRef refcount
+            # keeps the staged rows alive (the staged chunk hasn't
+            # materialized), and the dispatch window bounds how far ahead
+            # staging can run.
+            staged = mine = None          # (ChunkDesc, buffer, copy event)
+            stage_h2d = not self.fake
 
             def _skippable(c):
                 return c.spans and all(
                     sp.req.dropped() or sp.req.demoted_for(self.model_idx)
                     for sp in c.spans)
 
-            def _upload(c):
-                # one stream: the copy is ordered before the forward that
-                # reads it, and the slot recycles only after the chunk's
-                # output has materialized (SlotRef), which keeps the async
-                # copy's pinned source alive until it has run
-                if c.ref.slot is not None:
-                    src = self._ring_t[c.ref.slot][c.off:c.off + c.bucket]
-                else:                 # side-pool buffer (pageable)
-                    src = torch.from_numpy(c.ref.buf[c.off:c.off + c.bucket])
-                return src.to(self._device, non_blocking=True)
-
-            for item in items:
-                if item is None:
-                    stop = True
-                    ctl = True
-                    break
-                if isinstance(item, FlushBarrier):
-                    if group:         # every earlier chunk is dispatched
-                        self._send_q.put(group)
-                        group = []
-                    item.done.set()
-                    ctl = True
-                    continue
-                chunk: ChunkDesc = item
-                self.timers.add("dispatch_wait.high" if chunk.level ==
-                                seg.PRIORITY_HIGH else "dispatch_wait.normal",
-                                t0 - chunk.t_enq)
-                if _skippable(chunk):
-                    group.append((chunk, None, None, t0, True))  # skipped
-                    continue
-                committed += 1
-                y = ev = None
-                nan_out = False
-                if self._fault is not None:
-                    nan_out = self._fault.tick(
-                        self.worker_id, "predictor") == "nan"
-                if nan_out:
-                    # poisoned device output: bypasses the real dispatch so
-                    # it works identically on fake and real devices; the
-                    # sender's nan_guard is what must catch it
-                    y = np.full((chunk.bucket, self.num_classes),
-                                np.nan, np.float32)
-                elif self.fake:
-                    if self.fake_delay_us:    # simulated device time
-                        time.sleep(self.fake_delay_us * 1e-6)
-                else:
-                    fe = (self.frontend[:chunk.bucket]
-                          if self.frontend is not None else None)
-                    y = self.predict_fn(self.params, _upload(chunk), fe)
-                    if self._cuda:        # materialization marker
-                        ev = torch.cuda.Event()
-                        ev.record(torch.cuda.current_stream(self._device))
-                group.append((chunk, y, ev, t0, False))
+            try:
+                for pos, item in enumerate(items):
+                    if item is None:
+                        stop = True
+                        ctl = True
+                        break
+                    if isinstance(item, FlushBarrier):
+                        if group:     # every earlier chunk is dispatched
+                            self._send_q.put(group)
+                            group = []
+                        item.done.set()
+                        ctl = True
+                        continue
+                    chunk: ChunkDesc = item
+                    self.timers.add("dispatch_wait.high" if chunk.level ==
+                                    seg.PRIORITY_HIGH else
+                                    "dispatch_wait.normal", t0 - chunk.t_enq)
+                    if staged is not None and staged[0] is chunk:
+                        mine, staged = staged, None
+                    if _skippable(chunk):
+                        # demoted or dropped since it was staged: its copy
+                        # ends before the sender may recycle its slot
+                        self._settle(mine)
+                        mine = None
+                        group.append((chunk, None, None, t0, True))
+                        continue
+                    committed += 1
+                    y = ev = None
+                    nan_out = False
+                    if self._fault is not None:
+                        nan_out = self._fault.tick(
+                            self.worker_id, "predictor") == "nan"
+                    if nan_out:
+                        # poisoned device output: bypasses the real dispatch
+                        # so it works identically on fake and real devices;
+                        # the sender's nan_guard is what must catch it
+                        self._settle(mine)
+                        y = np.full((chunk.bucket, self.num_classes),
+                                    np.nan, np.float32)
+                    elif self.fake:
+                        if self.fake_delay_us:    # simulated device time
+                            time.sleep(self.fake_delay_us * 1e-6)
+                    else:
+                        if mine is not None:      # upload already in flight
+                            x = self._staged_input(mine)
+                            self.timers.inc("h2d_staged", 1)
+                        else:
+                            x = self._upload(chunk)
+                        fe = (self.frontend[:chunk.bucket]
+                              if self.frontend is not None else None)
+                        y = self.predict_fn(self.params, x, fe)
+                        if self._cuda:        # materialization marker
+                            ev = torch.cuda.Event()
+                            ev.record(torch.cuda.current_stream(self._device))
+                        if stage_h2d:
+                            # overlap the NEXT chunk's upload with this
+                            # compute
+                            for nxt in items[pos + 1:]:
+                                if nxt is None or isinstance(nxt, FlushBarrier):
+                                    break
+                                if not _skippable(nxt):
+                                    staged = self._stage(nxt)
+                                    break
+                    mine = None
+                    group.append((chunk, y, ev, t0, False))
+            finally:
+                # a round always reaches the chunk it staged; a crash
+                # mid-round leaves no copy reading a slot, and no buffer
+                # or event held by this frame's traceback
+                self._settle(staged)
+                self._settle(mine)
+                staged = mine = x = None
             for _ in range(tokens - committed):   # unused / skipped tokens
                 self._dispatch_sem.release()
             if group:

@@ -501,6 +501,104 @@ def test_failed_spawn_leaves_nothing_behind(dev):
         np.testing.assert_array_equal(s.predict(X), Y)
 
 
+def _plain_mean(dev, cfgs, params, X):
+    """The members' plain forwards on the card, last position, averaged."""
+    from repro_torch.models.transformer import forward
+    tok = torch.from_numpy(X).to(dev)
+    with torch.no_grad():
+        return sum(forward(p, c, tok)[0][:, -1, :c.vocab_size]
+                   for c, p in zip(cfgs, params)).cpu().numpy() / len(cfgs)
+
+
+def test_staged_uploads_under_load_hold_every_row(dev):
+    """Many concurrent requests of distinct rows on four workers (both
+    members on both cells of the card), three times in a row: every
+    request's answer is the plain forwards', and the predictors staged
+    uploads on their copy streams.  A staged buffer reused by the next
+    upload before the forward read it (no ``record_stream``), or a forward
+    that did not wait for its copy, gives some request another's rows."""
+    from repro_torch.configs import ensemble
+    from repro_torch.core import AllocationMatrix, cuda_cells
+    from repro_torch.models import init_params
+    from repro_torch.serving import InferenceSystem
+    cfgs = ensemble("ENS4")[:2]
+    params = [init_params(c, seed=i, device=dev) for i, c in enumerate(cfgs)]
+    cells = [c for c in cuda_cells(2) if c.torch_device == dev]
+    rng = np.random.default_rng(5)
+    sizes = rng.integers(1, 70, 48)
+    X = rng.integers(0, 512, (int(sizes.sum()), 16)).astype(np.int32)
+    X[:, 0] = np.arange(len(X)) % 512          # rows differ
+    want = _plain_mean(dev, cfgs, params, X)
+    bounds = np.concatenate([[0], np.cumsum(sizes)])
+    with InferenceSystem(cfgs, params, AllocationMatrix(
+            cells, [c.name for c in cfgs], np.array([[8, 8], [8, 8]])),
+            max_seq=16, segment_size=64, use_kernel=True) as s:
+        assert len({w._copy for w in s.workers}) == 4
+        for _ in range(3):
+            hs = [s.predict_async(X[lo:hi])
+                  for lo, hi in zip(bounds[:-1], bounds[1:])]
+            for h, lo, hi in zip(hs, bounds[:-1], bounds[1:]):
+                np.testing.assert_allclose(h.result(120.0), want[lo:hi],
+                                           atol=1e-4)
+        assert s.serving_counters().get("h2d_staged", 0) > 0
+
+
+def test_staged_buffer_comes_from_the_copy_stream(dev, monkeypatch):
+    """Each staged buffer is copied on its worker's copy stream, not the
+    compute stream, and the compute stream waits for that copy's event
+    before the forward that reads the buffer is enqueued."""
+    from repro_torch.configs import ensemble
+    from repro_torch.core import AllocationMatrix, cuda_devices
+    from repro_torch.models import init_params
+    from repro_torch.serving import InferenceSystem
+    cfgs = ensemble("ENS4")[:2]
+    params = [init_params(c, seed=i, device=dev) for i, c in enumerate(cfgs)]
+    waited = {}                                 # id(event) -> stream id
+    wait_event = torch.cuda.Stream.wait_event
+
+    def recorded_wait(self, event):
+        waited[id(event)] = self.stream_id
+        return wait_event(self, event)
+
+    monkeypatch.setattr(torch.cuda.Stream, "wait_event", recorded_wait)
+    X = np.random.default_rng(6).integers(0, 512, (96, 16)).astype(np.int32)
+    used = []
+    with InferenceSystem(cfgs, params, AllocationMatrix(
+            cuda_devices()[:1], [c.name for c in cfgs], np.array([[8, 8]])),
+            max_seq=16, segment_size=64, use_kernel=True) as s:
+        for w in s.workers:
+            made = {}                   # id(buffer) -> the stream it came on
+            staged = {}                 # id(staged buffer) -> its event
+
+            def upload(c, made=made, inner=w._upload):
+                x = inner(c)
+                made[id(x)] = torch.cuda.current_stream(dev).stream_id
+                return x
+
+            def stage(c, staged=staged, inner=w._stage):
+                out = inner(c)
+                staged[id(out[1])] = out[2]
+                return out
+
+            def predict(params, x, fe, w=w, made=made, staged=staged,
+                        inner=w.predict_fn):
+                if id(x) in staged:
+                    ev = staged.pop(id(x))
+                    used.append((made[id(x)], w._copy.stream_id,
+                                 waited.get(id(ev)),
+                                 torch.cuda.current_stream(dev).stream_id))
+                return inner(params, x, fe)
+
+            w._upload, w._stage, w.predict_fn = upload, stage, predict
+        Y = s.predict(X)
+        assert s.serving_counters().get("h2d_staged", 0) == len(used) > 0
+    np.testing.assert_allclose(Y, _plain_mean(dev, cfgs, params, X),
+                               atol=1e-4)
+    for made_on, copy, waited_on, compute in used:
+        assert made_on == copy != compute
+        assert waited_on == compute              # the forward's stream
+
+
 @pytest.mark.parametrize("name", ["qwen3-1.7b-reduced", "hymba-1.5b-reduced",
                                   "granite-moe-3b-a800m-reduced",
                                   "llama-3.2-vision-11b-reduced"])
