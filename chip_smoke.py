@@ -161,7 +161,9 @@ Phases, one JSON line each; any failed phase exits non-zero:
    mesh, on the host, started before ``train:qwen3`` and collected here)
    and its roofline rows: FLOPs, per-rank bytes, collective bytes by type,
    the memory analysis, the dominant term and MODEL/traced FLOPs
-   (PyTorch's counts, not XLA's);
+   (PyTorch's counts, not XLA's); it fails when a record's per-rank
+   argument + temp reaches the card's 80 GB, and prints each temp beside
+   the JAX dry-run's (XLA's buffer assignment on a CPU host);
 16. ``example:quickstart``: ``examples/torch_quickstart.py`` as a
    subprocess on two cells of the card, rc 0.
 
@@ -1972,6 +1974,13 @@ POD_LOSS_RTOL = 1e-4
 POD_PEAK_RTOL = 0.10                    # dryrun:pod's predicted peak
 DRYRUN_ARCH = "qwen3-1.7b"              # train_4k, prefill_32k, decode_32k
 DRYRUN_TIMEOUT_S = 600
+# a record's per-rank argument + temp must stay under the card's 80 GB
+DRYRUN_RANK_BYTES = 80e9
+# the JAX package's records of the same three steps (``python -m
+# repro.launch.dryrun --arch qwen3-1.7b`` on a CPU host): XLA's buffer
+# assignment for the host CPU, printed beside the port's, not the card's
+JAX_CPU_TEMP = {"train_4k": 25804510296, "prefill_32k": 2336571504,
+                "decode_32k": 5541482864}
 QUICKSTART_TIMEOUT_S = 600
 SIM_BURSTS, SIM_REQ, SIM_ROWS = 25, 8, 8  # sim:qwen3's recorded trace: 200
                                         # requests, each burst sent as the
@@ -2818,16 +2827,30 @@ def phase_dryrun(started, out_dir: str, smi: str) -> None:
     if not set(shapes) <= set(rows) or \
             not all(recs[s]["flops_per_rank"] > 0 for s in shapes):
         fail(f"dryrun:qwen3: records {sorted(recs)}, rows {sorted(rows)}")
+    peak = {s: recs[s]["memory_analysis"]["argument_size_in_bytes"]
+            + recs[s]["memory_analysis"]["temp_size_in_bytes"]
+            for s in shapes}
+    if max(peak.values()) >= DRYRUN_RANK_BYTES:
+        fail(f"dryrun:qwen3: a rank's argument + temp reaches the card's "
+             f"{DRYRUN_RANK_BYTES / 1e9:.0f} GB: {peak}")
     emit({"phase": "dryrun:qwen3", "ok": True, "card": smi,
           "command": " ".join(["python", "-m"] + cmd[2:]),
           "seconds": seconds, "mesh": recs["train_4k"]["mesh_shape"],
           "counts": "PyTorch's (per-rank ops of the traced step), not XLA's",
+          "rank_bytes_limit_gb": DRYRUN_RANK_BYTES / 1e9,
+          "jax_temp_note": "the JAX dry-run's temp on a CPU host: XLA's "
+                           "buffer assignment for the CPU, not the card's",
           "rows": {s: {
               "trace_s": recs[s]["trace_s"],
               "flops": rows[s].hlo_flops,
               "flops_per_rank": recs[s]["flops_per_rank"],
               "bytes_accessed_per_rank": recs[s]["bytes_accessed_per_rank"],
               "memory_analysis": recs[s]["memory_analysis"],
+              "argument_plus_temp_gb": peak[s] / 1e9,
+              "temp_gb": recs[s]["memory_analysis"]["temp_size_in_bytes"]
+              / 1e9,
+              "jax_temp_gb_xla_cpu_buffer_assignment":
+                  JAX_CPU_TEMP[s] / 1e9,
               "collective_bytes_per_rank": recs[s]["collectives"]["bytes"],
               "collective_counts": recs[s]["collectives"]["counts"],
               "compute_s": rows[s].compute_s, "memory_s": rows[s].memory_s,

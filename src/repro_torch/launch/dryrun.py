@@ -16,14 +16,16 @@ in a process of its own.  One JSON per combo is written under
 type, the op histogram, and ``memory_analysis`` under the JAX record's field
 names, all per rank: ``argument_size_in_bytes`` and
 ``output_size_in_bytes`` (this rank's shards), ``temp_size_in_bytes`` (the
-peak of live storage bytes during one step, less the arguments': so
-``argument + temp`` is the rank's peak) and ``alias_size_in_bytes`` (outputs
-in an argument's storage: the in-place AdamW update).
+peak of the live bytes of the storages one step allocates, its outputs left
+out, as XLA's temp: so ``argument + output - alias + temp`` bounds the
+rank's peak, and for a train step ``argument + temp`` is it) and
+``alias_size_in_bytes`` (outputs in an argument's storage: the in-place
+AdamW update).
 ``generated_code_size_in_bytes`` is left out: eager PyTorch runs no
 compiled program.  Every figure is PyTorch's count of the ops one rank runs
 (``launch/hlo_analysis.py``), not XLA's: the peak is the eager sequence's,
-not XLA's buffer assignment, and none of them compares with the JAX
-dry-run's.
+not XLA's buffer assignment: its temp sits beside the JAX dry-run's as
+another schedule's of the same step, not equal to it.
 """
 from __future__ import annotations
 

@@ -19,7 +19,7 @@ products would be counted partly global and partly per rank.)
 The same pass follows the step's memory: each storage an op allocates is
 live from that op until its last tensor dies, so the peak of live bytes is
 the eager sequence's own (:class:`Memory`).  It is not XLA's buffer
-assignment and does not compare with the JAX dry-run's figure.
+assignment: another schedule's temporaries for the same step.
 
 The JAX module's ``while_trip_counts`` has no counterpart: the port's layer
 stack is a Python loop, so a trace holds every layer's ops and nothing is
@@ -104,21 +104,38 @@ def storage_ids(tree) -> set:
 class Memory:
     """One rank's live storage bytes over a recorded run: ``peak`` is the
     most that the storages its ops allocated held at once (the bytes that
-    existed before the run, such as its arguments, not included)."""
+    existed before the run, such as its arguments, not included).
+    ``log`` holds each allocation (+bytes) and free (-bytes) in order, by
+    allocation number, so that :meth:`peak_without` can leave some
+    storages out afterwards."""
     live: int = 0
     peak: int = 0
-    counted: set = field(default_factory=set)   # ids of the live storages
+    counted: dict = field(default_factory=dict)  # live storage id -> number
+    log: list = field(default_factory=list)      # (number, +-bytes)
 
     def alloc(self, storage) -> None:
-        key, n = id(storage), storage.nbytes()
-        self.counted.add(key)
+        key, n, num = id(storage), storage.nbytes(), len(self.log)
+        self.counted[key] = num
+        self.log.append((num, n))
         self.live += n
         self.peak = max(self.peak, self.live)
-        weakref.finalize(storage, self.free, key, n)
+        weakref.finalize(storage, self.free, key, n, num)
 
-    def free(self, key: int, n: int) -> None:
-        self.counted.discard(key)
+    def free(self, key: int, n: int, num: int) -> None:
+        self.counted.pop(key, None)
+        self.log.append((num, -n))
         self.live -= n
+
+    def peak_without(self, ids: set) -> int:
+        """The peak of the live bytes with the live storages whose ids are
+        in ``ids`` (say, a step's outputs) left out of the whole run."""
+        skip = {self.counted[k] for k in ids if k in self.counted}
+        live = peak = 0
+        for num, n in self.log:
+            if num not in skip:
+                live += n
+                peak = max(peak, live)
+        return peak
 
 
 class _Recorder(TorchDispatchMode):

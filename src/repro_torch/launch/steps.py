@@ -17,12 +17,17 @@ record it returns stands in for JAX's ``Lowered``.  The step runs the plain
 path (``use_kernel=False``), as the JAX dry-run lowers the plain path too.
 
 The record's bytes are one rank's, in the field names of XLA's memory
-analysis: arguments and outputs (local shards), ``temp`` -- the peak of
-live storage bytes during the step less the arguments' -- and ``alias``,
-the outputs that share an argument's storage (the AdamW update runs in
-place).  So ``argument + temp`` is the rank's predicted peak for one step.
-The optimizer's state is an argument (``optimizer.init`` makes it before
-the first step), so every training step has this peak, the first too.
+analysis and with their meaning: arguments and outputs (local shards),
+``temp`` -- the peak of the live bytes of the storages the step allocates,
+its outputs left out, as XLA's temp holds neither arguments nor outputs --
+and ``alias``, the outputs that share an argument's storage (the AdamW
+update runs in place).  So ``argument + output - alias + temp`` bounds the
+rank's peak for one step.  A train step's outputs are its arguments,
+updated in place, and a few scalars, so there ``argument + temp`` is the
+peak; the optimizer's state is an argument (``optimizer.init`` makes it
+before the first step), so every training step has it, the first too.  The
+prefill step makes its zero cache inside, as the JAX step does: the cache
+is an output, not an argument.
 """
 from __future__ import annotations
 
@@ -109,8 +114,19 @@ def build_train_step(cfg: ModelConfig, *, remat: bool = True):
     return make_train_step(cfg, opt.AdamWConfig(), remat=remat)
 
 
-def build_prefill_step(cfg: ModelConfig, max_len: int):
-    def step(params, tokens, frontend=None, cache=None):
+def build_prefill_step(cfg: ModelConfig, max_len: int, mesh):
+    """The prompt pass, which makes its zero cache inside, as the JAX
+    step does: each rank allocates its slice of the cache placed per
+    ``cache_specs`` on ``mesh`` (``prefill``'s own cache would be whole on
+    every rank)."""
+    def step(params, tokens, frontend=None):
+        b = tokens.shape[0]
+        specs = shd.cache_specs(cfg, mesh, b, max_len)["layers"]
+        cache = {"layers": [
+            {name: shd.zeros((cfg.repeats,) + shape, dt, spec[name], mesh)
+             for name, (shape, dt) in cache_mod.layer_cache_struct(
+                 cfg, kind, b, max_len, params["embed"].dtype).items()}
+            for kind, spec in zip(cfg.pattern, specs)]}
         return model_prefill(params, cfg, tokens, max_len, frontend,
                              cache=cache)
     return step
@@ -133,7 +149,7 @@ class Traced:
     trace: List[hlo_analysis.TracedOp] = field(repr=False)
     argument_bytes: int        # this rank's shards of the step's inputs
     output_bytes: int          # ... and of its outputs
-    temp_bytes: int            # peak live bytes during the step - arguments
+    temp_bytes: int            # peak live bytes the step allocates, outputs out
     alias_bytes: int           # outputs in an argument's storage
 
     def memory_analysis(self) -> Dict[str, int]:
@@ -198,12 +214,9 @@ def lower_step(cfg: ModelConfig, shape_name: str, mesh, *,
             fn = build_train_step(cfg, remat=remat)
         elif kind == "prefill":
             front = specs.get("frontend")
-            cache = cache_mod.init_cache(cfg, b, s, param_dtype,
-                                         device=device)
             args = (params, one(specs["tokens"], bspec["tokens"]),
-                    None if front is None else one(front, bspec["frontend"]),
-                    shd.place(cache, shd.cache_specs(cfg, mesh, b, s), mesh))
-            fn = build_prefill_step(cfg, s)
+                    None if front is None else one(front, bspec["frontend"]))
+            fn = build_prefill_step(cfg, s, mesh)
         elif kind == "decode":
             args = (params, shd.place(specs["cache"],
                                       shd.cache_specs(cfg, mesh, b, s), mesh),
@@ -219,5 +232,6 @@ def lower_step(cfg: ModelConfig, shape_name: str, mesh, *,
         finally:
             slot_valid.cache_clear()
         return Traced(kind, trace, _local_bytes(list(args)),
-                      _local_bytes(list(out)), memory.peak,
+                      _local_bytes(list(out)),
+                      memory.peak_without(hlo_analysis.storage_ids(out)),
                       _alias_bytes(out, list(args)))

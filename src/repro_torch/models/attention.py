@@ -25,7 +25,8 @@ from repro_torch import runtime_flags
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models.layers import apply_rope, rms_norm
-from repro_torch.parallel.collectives import einsum, flash_decode
+from repro_torch.parallel.collectives import (contiguous_strides, einsum,
+                                           flash_decode, is_dtensor)
 
 NEG_INF = -1e30
 _CHUNK = 512          # KV chunk for the online-softmax loop
@@ -77,6 +78,34 @@ def dense_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0,
     return einsum("bhqs,bshk->bqhk", probs, v)
 
 
+def _carries(qf):
+    """The online softmax's running max and sum (B,H,Sq) and accumulator
+    (B,Sq,H,hd), f32.  For a DTensor ``qf`` each is made from this rank's
+    part and placed as ``qf``'s batch, sequence and head dims are: a zeros
+    of the global shape would be replicated whole on every rank."""
+    b, sq, h, hd = qf.shape
+    if not is_dtensor(qf):
+        return (torch.full((b, h, sq), NEG_INF, dtype=torch.float32,
+                           device=qf.device),
+                torch.zeros((b, h, sq), dtype=torch.float32, device=qf.device),
+                torch.zeros((b, sq, h, hd), dtype=torch.float32,
+                            device=qf.device))
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, local = qf.device_mesh, qf.to_local()
+    lb, lsq, lh, _ = local.shape
+    to_bhq = {0: 0, 1: 2, 2: 1}          # (B,Sq,H) dims -> (B,H,Sq) dims
+    pl = [Shard(to_bhq[p.dim]) if isinstance(p, Shard) and p.dim in to_bhq
+          else Replicate() for p in qf.placements]
+    shape = torch.Size((b, h, sq))
+
+    def carry(t):
+        return DTensor.from_local(t, mesh, pl, run_check=False, shape=shape,
+                                  stride=contiguous_strides(shape))
+    kw = dict(dtype=torch.float32, device=local.device)
+    return (carry(torch.full((lb, lh, lsq), NEG_INF, **kw)),
+            carry(torch.zeros((lb, lh, lsq), **kw)), torch.zeros_like(qf))
+
+
 def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0,
                       chunk: int = _CHUNK) -> torch.Tensor:
     """Online-softmax attention looping over KV chunks; O(Sq*chunk) memory."""
@@ -91,9 +120,7 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0,
     k = _expand_kv(k, h)
     v = _expand_kv(v, h)
     qf = q.float() * (hd ** -0.5)
-    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, sq, h, hd), dtype=torch.float32, device=q.device)
+    m, l, acc = _carries(qf)
     for i in range(nk):
         sl = slice(i * chunk, (i + 1) * chunk)
         logits = einsum("bqhk,bshk->bhqs", qf, k[:, sl].float())

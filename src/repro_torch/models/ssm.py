@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import rms_norm
-from repro_torch.parallel.collectives import einsum, gather_dims
+from repro_torch.parallel.collectives import einsum, gather_dims, is_dtensor
 
 
 def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
@@ -52,6 +52,16 @@ def segsum_exp(dA_cs: torch.Tensor) -> torch.Tensor:
     mask = torch.tril(torch.ones((cl, cl), dtype=torch.bool,
                                  device=dA_cs.device))
     return torch.exp(diff.masked_fill(~mask, float("-inf")))
+
+
+def _zero_state(states, b, h, p, n, x):
+    """The zero state (B,H,P,N) entering the first chunk, in ``x``'s dtype;
+    for DTensor ``states`` (B,nc,H,P,N) placed as a chunk's states are, so
+    that each rank holds its part (a zeros of the global shape would be
+    whole on every rank)."""
+    if is_dtensor(states):
+        return torch.zeros_like(states[:, 0], dtype=x.dtype)
+    return torch.zeros((b, h, p, n), dtype=x.dtype, device=x.device)
 
 
 def ssd_chunked(x, dt, A, bmat, cmat, chunk: int) -> torch.Tensor:
@@ -88,7 +98,7 @@ def ssd_chunked(x, dt, A, bmat, cmat, chunk: int) -> torch.Tensor:
                     xdt * decay_to_end[..., None])      # (b,nc,h,p,n)
     # inter-chunk recurrence: the state entering each chunk
     chunk_decay = torch.exp(cs[:, :, -1, :])            # (b,nc,h)
-    hstate = torch.zeros((b, h, p, n), dtype=x.dtype, device=x.device)
+    hstate = _zero_state(states, b, h, p, n, x)
     hprevs = []
     for c in range(nc):
         hprevs.append(hstate)
@@ -119,7 +129,7 @@ def ssd_final_state(x, dt, A, bmat, chunk: int) -> torch.Tensor:
     states = einsum("bcjn,bcjhp->bchpn", bc,
                     xc * (dtc * decay_to_end)[..., None])
     chunk_decay = torch.exp(cs[:, :, -1, :])
-    hstate = torch.zeros((b, h, p, n), dtype=x.dtype, device=x.device)
+    hstate = _zero_state(states, b, h, p, n, x)
     for c in range(nc):
         hstate = hstate * chunk_decay[:, c, :, None, None] + states[:, c]
     return hstate

@@ -19,6 +19,13 @@ update touches only the owning rank, attention reads are local, and the
 online softmax combines with (B,H)-sized ``all_reduce``s of the max, the
 sum and the (B,1,H,hd) accumulator over the "model" group, in place of a
 gather of the cache.
+
+``vocab_parallel_nll``: the next-token cross-entropy of logits sharded on
+the vocabulary, as GSPMD lowers it: each rank's max, sum of exponentials
+and label logit over its own columns, each reduced over the mesh dims that
+shard the vocabulary ((B,S)-sized ``all_reduce``s), and a local backward.
+DTensor's ``log_softmax`` replicates its softmax dim, so each rank would
+hold (B,S,V) over the whole vocabulary.
 """
 from __future__ import annotations
 
@@ -264,3 +271,71 @@ def flash_decode(mesh, q, k_cache, v_cache, k_new, v_new, pos: int, *,
     return DTensor.from_local(out, mesh, rep_pl, run_check=False,
                               shape=q.shape,
                               stride=contiguous_strides(q.shape))
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """-log softmax(logits)[label] on one rank's vocabulary columns
+    ``[lo, lo + V_local)``; columns at or past ``vocab`` (the padding) take
+    -1e30, as the plain path's bias gives them.  ``groups``: the
+    ``(mesh, dim)`` groups whose ranks hold the other columns."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo: int, vocab: int, groups):
+        from torch.distributed import _functional_collectives as funcol
+        vl = logits.shape[-1]
+        mine = (labels >= lo) & (labels < lo + vl)
+        idx = torch.where(mine, labels - lo, torch.zeros_like(labels))
+        if lo + vl > vocab:        # the shard that holds the padding
+            cols = lo + torch.arange(vl, device=logits.device)
+            logits = logits.masked_fill(cols >= vocab, NEG_INF)
+        m = logits.amax(dim=-1)
+        picked = torch.where(mine, logits.gather(-1, idx[..., None])[..., 0],
+                             torch.zeros((), device=logits.device))
+        for g in groups:
+            m = funcol.all_reduce(m, "max", g)
+            picked = funcol.all_reduce(picked, "sum", g)
+        e = (logits - m[..., None]).exp_()
+        total = e.sum(dim=-1)
+        for g in groups:
+            total = funcol.all_reduce(total, "sum", g)
+        ctx.save_for_backward(e, total, idx, mine)
+        return torch.log(total) + m - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        # (softmax - onehot) * g on this rank's columns: no collective
+        e, total, idx, mine = ctx.saved_tensors
+        grad = e.mul_((g / total)[..., None])
+        grad.scatter_add_(-1, idx[..., None],
+                          torch.where(mine, -g, torch.zeros_like(g))[..., None])
+        return grad, None, None, None, None
+
+
+def vocab_parallel_nll(logits, labels, vocab: int):
+    """Per-position -log softmax(logits)[labels] (B,S) of DTensor logits
+    (B,S,V_pad) (f32), columns at or past ``vocab`` masked; ``labels``
+    (B,S) are vocabulary ids (>= 0), a tensor or a DTensor.  Each rank
+    works on its own columns (see the module docstring); the result is
+    placed as the logits' batch and sequence dims, replicated over the mesh
+    dims that shard the vocabulary."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.parallel.sharding import local_slices
+    logits = settle(logits)
+    mesh = logits.device_mesh
+    vdim = logits.ndim - 1
+    groups = [(mesh, i) for i, p in enumerate(logits.placements)
+              if isinstance(p, Shard) and p.dim == vdim and mesh.size(i) > 1]
+    out_pl = [p if isinstance(p, Shard) and p.dim != vdim else Replicate()
+              for p in logits.placements]
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    lab = settle(labels).redistribute(mesh, out_pl).to_local()
+    lo = local_slices(logits.shape, mesh, logits.placements)[vdim].start
+    nll = _VocabParallelNLL.apply(
+        logits.to_local(grad_placements=logits.placements), lab, lo,
+        vocab, groups)
+    shape = labels.shape
+    return DTensor.from_local(nll, mesh, out_pl, run_check=False, shape=shape,
+                              stride=contiguous_strides(shape))

@@ -276,6 +276,23 @@ def place(tree, specs, mesh):
         for t, s in zip(T.leaves(tree), spec_leaves(specs))])
 
 
+def zeros(shape, dtype, spec, mesh):
+    """A DTensor of zeros of ``shape`` placed per ``spec`` on ``mesh``,
+    each rank allocating only its own slice (:func:`place` takes a whole
+    tensor on every rank)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.parallel.collectives import contiguous_strides
+    pl = to_placements(spec, mesh)
+    local = torch.zeros([s.stop - s.start for s in
+                         local_slices(shape, mesh, pl)],
+                        dtype=dtype, device=mesh.device_type)
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_strides(shape))
+
+
 def to_named(tree, mesh):
     """A spec tree -> the same tree of placement lists on ``mesh``."""
     return _map_specs(lambda s: to_placements(s, mesh), tree)

@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import forward
-from repro_torch.parallel.collectives import is_dtensor
+from repro_torch.parallel.collectives import is_dtensor, vocab_parallel_nll
 from repro_torch.training import optimizer as opt
 from repro_torch.training import tree as T
 
@@ -29,25 +29,21 @@ def loss_fn(params, cfg: ModelConfig, tokens, labels, frontend=None, *,
     logits, aux = forward(params, cfg, tokens, frontend,
                           use_kernel=use_kernel, remat=remat)
     logits = logits.float()
-    vocab = cfg.vocab_size
-    pad = logits.shape[-1] - vocab
-    if pad:
-        neg = torch.full((1, 1, pad), -1e30, device=logits.device)
-        logits = logits + torch.cat(
-            [torch.zeros((1, 1, vocab), device=logits.device), neg], dim=-1)
-    logp = torch.log_softmax(logits, dim=-1)
     mask = (labels >= 0).float()
     safe = torch.clamp(labels, min=0).long()
-    if is_dtensor(logp):
-        # the label's log-probability as a select and a sum over the
-        # vocabulary (one term is not zero, so the value is the gather's):
-        # a gather's backward under DTensor allocates a zero tensor of the
-        # global logits' shape on every rank
-        hit = torch.arange(logp.shape[-1],
-                           device=logp.device) == safe[..., None]
-        nll = -torch.where(hit, logp,
-                           torch.zeros((), device=logp.device)).sum(-1)
+    if is_dtensor(logits):
+        # each rank keeps its vocabulary columns: a log_softmax over the
+        # sharded dim would gather the whole vocabulary on every rank
+        nll = vocab_parallel_nll(logits, safe, cfg.vocab_size)
     else:
+        vocab = cfg.vocab_size
+        pad = logits.shape[-1] - vocab
+        if pad:
+            neg = torch.full((1, 1, pad), -1e30, device=logits.device)
+            logits = logits + torch.cat(
+                [torch.zeros((1, 1, vocab), device=logits.device), neg],
+                dim=-1)
+        logp = torch.log_softmax(logits, dim=-1)
         nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return ce + aux, {"ce": ce, "aux": aux}

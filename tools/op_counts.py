@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The aten ops one decode step and one training step dispatch, by op, in
-one checkout, on the CPU at the reduced configs.
+"""The aten ops that one decode step, one training step and one long
+forward dispatch, by op, in one checkout, on the CPU at the reduced
+configs.
 
     python3 tools/op_counts.py [--src DIR] [--label NAME]
 
@@ -8,7 +9,8 @@ Imports ``repro_torch`` from ``DIR/src`` (default: this checkout), and for
 qwen3, hymba, mamba2 and granite (reduced, params from seed 0; granite
 with its dense and its capacity MoE) counts the
 ops of ``decode_step`` after an 8-token prefill at batch 2, and of
-``loss_and_grads`` with remat on a (2, 16) batch.  Prints one JSON line:
+``loss_and_grads`` with remat on a (2, 16) batch, and of ``forward`` on
+one sequence of ``LONG`` tokens.  Prints one JSON line:
 per config and step, the total and the count of each op.  Two checkouts
 that print the same counts dispatch the same device work on those paths;
 the host cost of the Python around the ops is not counted.
@@ -24,6 +26,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 # granite's full config takes the capacity MoE; its reduced one the dense
+# the forward's length: past the attention's dense limit (2048), so the
+# chunked online-softmax loop runs
+LONG = 2304
 ARCHS = ("qwen3-1.7b", "hymba-1.5b", "mamba2-1.3b", "granite-moe-3b-a800m",
          "granite-moe-3b-a800m:capacity")
 
@@ -39,7 +44,7 @@ def main(argv=None) -> int:
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from repro_torch.configs import get_config
-    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models import decode_step, forward, init_params, prefill
     from repro_torch.training.train_loop import loss_and_grads
 
     class Count(TorchDispatchMode):
@@ -68,10 +73,15 @@ def main(argv=None) -> int:
         with Count() as tr:
             loss_and_grads(params, cfg, {"tokens": toks[:, :16],
                                          "labels": toks[:, 1:]}, remat=True)
+        long = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (1, LONG)))
+        with Count() as fw:
+            forward(params, cfg, long)
         out[arch] = {
             step: {"total": sum(c.ops.values()), "ops": dict(sorted(
                 c.ops.items()))}
-            for step, c in (("decode", dec), ("train", tr))}
+            for step, c in (("decode", dec), ("train", tr),
+                            ("forward", fw))}
     print(json.dumps(out))
     return 0
 
