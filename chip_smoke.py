@@ -144,7 +144,15 @@ Phases, one JSON line each; any failed phase exits non-zero:
    prompt 1024, 2048 slots) under the variant ``cache_seqshard`` with the
    params and cache placed per ``parallel.sharding``, held to the plain
    decode path (``1e-4·max(1, max|ref|)``), with no kernel launched, and
-   ms a step beside the kernel path's and the plain path's;
+   ms a step beside the kernel path's and the plain path's.
+   ``parallel:prefill`` (same group and mesh): the sharded prefill step
+   (``launch.steps.build_prefill_step``) of mamba2-1.3b and hymba-1.5b at
+   full width, params placed per ``parallel.sharding``, a prompt of 4096
+   tokens at batch 2 (the SSM mixer's per-part projection, its heads
+   placed over "model", and the chunked attention's in-place scores):
+   the last-token logits and the ``h`` cache held to the plain
+   ``prefill`` (``1e-4·max(1, max|ref|)``), no kernel launched, ms
+   beside the plain path's;
 14. ``train:pod``: the training launcher's pod path
    (``launch.train.train_pod``) in this process on the same group,
    qwen3-1.7b at full width, a shape registered here (seq 4096, global
@@ -163,7 +171,10 @@ Phases, one JSON line each; any failed phase exits non-zero:
    the memory analysis, the dominant term and MODEL/traced FLOPs
    (PyTorch's counts, not XLA's); it fails when a record's per-rank
    argument + temp reaches the card's 80 GB, and prints each temp beside
-   the JAX dry-run's (XLA's buffer assignment on a CPU host);
+   the JAX dry-run's (XLA's buffer assignment on a CPU host).  Beside it,
+   two more host processes trace mamba2-1.3b's and hymba-1.5b's
+   ``prefill_32k``: each fails when its temp exceeds its bound over the
+   JAX record's (2x mamba2's, 1.5x hymba's);
 16. ``example:quickstart``: ``examples/torch_quickstart.py`` as a
    subprocess on two cells of the card, rc 0.
 
@@ -187,6 +198,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+import weakref
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1981,6 +1993,13 @@ DRYRUN_RANK_BYTES = 80e9
 # assignment for the host CPU, printed beside the port's, not the card's
 JAX_CPU_TEMP = {"train_4k": 25804510296, "prefill_32k": 2336571504,
                 "decode_32k": 5541482864}
+# the SSM members' sharded prefill_32k: the JAX records' temp (same
+# command, same host kind) and the port's bound over it
+DRYRUN_SSM = {"mamba2-1.3b": (1815483248, 2.0),
+              "hymba-1.5b": (7799956880, 1.5)}
+SP_MODELS = ("mamba2-1.3b", "hymba-1.5b")   # parallel:prefill
+SP_BATCH, SP_PROMPT = 2, 4096
+SP_TOL = 1e-4                           # x max(1, max |ref|)
 QUICKSTART_TIMEOUT_S = 600
 SIM_BURSTS, SIM_REQ, SIM_ROWS = 25, 8, 8  # sim:qwen3's recorded trace: 200
                                         # requests, each burst sent as the
@@ -2054,6 +2073,50 @@ def http_round(torch, url: str, X, rows) -> dict:
     return {"Y": Y, "wall_s": wall, "body_mb": len(body) / 1e6,
             "encode_ms": 1e3 * encode, "decode_ms": 1e3 * decode,
             "metrics": client.metrics()}
+
+
+def supervision_report(torch, system, workers, dev) -> dict:
+    """What supervision saw, for a served burst that failed: its counters,
+    each worker's health, stage heartbeats (state, seconds since the
+    stamp) and crash, and the card's memory.  ``workers`` may be a
+    ``WeakSet``: a quarantined worker lives on in its leaked threads."""
+    import traceback
+    now = time.perf_counter()
+    counters = system.serving_counters()
+    return {
+        "counters": {k: counters.get(k) for k in (
+            "worker_crashes", "stalls_detected", "quarantines",
+            "segments_replayed")},
+        "workers": {w.worker_id: {
+            "health": w.health(system.watchdog_s),
+            "stages": {s: [st, now - t] for s, (st, t) in w._hb.items()},
+            "crash": None if w.crash_cause is None else "".join(
+                traceback.format_exception(w.crash_cause))[-1500:]}
+            for w in workers},
+        "device_gb_allocated": torch.cuda.memory_allocated(dev) / 1e9,
+        "device_gb_reserved": torch.cuda.memory_reserved(dev) / 1e9}
+
+
+def demotion_report(Y, rows, logits, served, stats) -> dict:
+    """For demoted rows that missed the int8 member's reference: each
+    request's quality, members and forgiven rows, the controller's stats,
+    and for the first rows the reference row nearest to each (a row
+    served out of place shows here) and the least-squares fit of the row
+    as a·P1 + b·P0 (a mix of the members shows here)."""
+    import numpy as np
+    P0, P1 = logits
+    fits = []
+    for i in range(min(4, len(rows))):
+        A = np.stack([P1[rows[i]], P0[rows[i]]], 1).astype(np.float64)
+        (a, b), *_ = np.linalg.lstsq(A, Y[i].astype(np.float64), rcond=None)
+        near = np.abs(P1[rows] - Y[i]).max(axis=1)
+        fits.append({"row": int(rows[i]), "a_P1": a, "b_P0": b,
+                     "nearest_ref_row": int(rows[int(near.argmin())]),
+                     "nearest_max_abs": float(near.min())})
+    return {"requests": [{"quality": q, "members": m,
+                          "forgiven_rows": None if w is None
+                          else int((w > 0).sum())} for q, m, w in served],
+            "brownout": stats, "rows": fits}
 
 
 def phase_control(torch, seed: int, smi: str) -> dict:
@@ -2131,10 +2194,18 @@ def phase_control(torch, seed: int, smi: str) -> dict:
         handles = [system.predict_async(
             X[i * CONTROL_ROWS:(i + 1) * CONTROL_ROWS])
             for i in range(CONTROL_REQ)]
+        # weakly: the drained instance must be free to go (see below)
+        seen = weakref.WeakSet(system.workers)
         t0 = time.perf_counter()
         ctl.apply(target)
         apply_s = time.perf_counter() - t0
-        Y_reconf = np.concatenate([h.result(600.0) for h in handles])
+        seen.update(system.workers)
+        try:
+            Y_reconf = np.concatenate([h.result(600.0) for h in handles])
+        except Exception as e:
+            fail(f"control:qwen3: a request failed during the rebatch "
+                 f"(apply {apply_s:.3f} s): {e!r}; "
+                 f"{supervision_report(torch, system, seen, dev)}")
         wall_reconf = max(h.req.t_submit + h.latency_s
                           for h in handles) - t_burst
         lat_reconf = [1e3 * h.latency_s for h in handles]
@@ -2167,7 +2238,8 @@ def phase_control(torch, seed: int, smi: str) -> dict:
         try:
             Y_fault = np.concatenate([h.result(600.0) for h in handles])
         except Exception as e:
-            fail(f"control:qwen3: a request failed under the fault: {e!r}")
+            fail(f"control:qwen3: a request failed under the fault: {e!r}; "
+                 f"{supervision_report(torch, system, seen, dev)}")
         quality = [h.quality for h in handles]
         launches = ops.kernel_launches()
         plain = ops.plain_calls()
@@ -2356,9 +2428,15 @@ def phase_control(torch, seed: int, smi: str) -> dict:
         checks["rows_full"] = served_checks(
             "brownout:qwen3", np.concatenate(Y_full_rows),
             np.array(full_rows), ref, "full rows")
-    checks["rows_int8_alone"] = served_checks(
-        "brownout:qwen3", np.concatenate(Y_alone), np.array(alone_rows),
-        (logits, scales, [0.0, 1.0]), "demoted rows")
+    try:
+        checks["rows_int8_alone"] = served_checks(
+            "brownout:qwen3", np.concatenate(Y_alone), np.array(alone_rows),
+            (logits, scales, [0.0, 1.0]), "demoted rows")
+    except SystemExit:
+        print(json.dumps({"brownout:qwen3 demoted rows": demotion_report(
+            np.concatenate(Y_alone), alone_rows, logits, served, stats)},
+            default=str), file=sys.stderr, flush=True)
+        raise
     minima = launches_hold("brownout:qwen3", cfgs[1:], [8],
                            3 * len(X), launches, plain,
                            combine_kernels=False)
@@ -2680,6 +2758,77 @@ def phase_parallel(torch, seed: int, smi: str) -> dict:
     return launches
 
 
+def phase_sharded_prefill(torch, seed: int, smi: str) -> None:
+    """``parallel:prefill`` (see the module docstring) on the world-size-1
+    group, which the caller destroys."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import init_params, prefill
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.parallel import sharding as shd
+
+    dev = torch.device("cuda", 0)
+    mesh = make_host_mesh(1, 1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 37)
+    rows = {}
+    for name in SP_MODELS:
+        cfg = get_config(name)
+        params = init_params(cfg, seed, dev)
+        prompt = torch.randint(0, cfg.vocab_size, (SP_BATCH, SP_PROMPT),
+                               generator=gen, device=dev)
+
+        def timed(fn):
+            """fn's result and the ms of its second call (the first warms
+            the libraries up)."""
+            fn()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            out = fn()
+            ev[1].record()
+            torch.cuda.synchronize()
+            return out, ev[0].elapsed_time(ev[1])
+
+        with torch.no_grad():
+            (ref, ref_cache), plain_ms = timed(
+                lambda: prefill(params, cfg, prompt, SP_PROMPT))
+            dparams = shd.place(
+                params, shd.param_specs(cfg, param_shapes(cfg), mesh), mesh)
+            tokens = shard_batch({"t": prompt.cpu().numpy()}, mesh)["t"]
+            step = build_prefill_step(cfg, SP_PROMPT, mesh)
+            ops.reset_counts()
+            with implicit_replication():
+                (logits, cache), sharded_ms = timed(
+                    lambda: step(dparams, tokens))
+                launches = ops.kernel_launches()
+                logits = logits.full_tensor()
+                h = [e["h"].full_tensor() for e in cache["layers"]]
+        err, scale = max_err(torch, logits, ref)
+        h_err, h_scale = max(max_err(torch, g, e["h"])
+                             for g, e in zip(h, ref_cache["layers"]))
+        row = {"layers": cfg.num_layers, "batch": SP_BATCH,
+               "prompt": SP_PROMPT, "in_proj_placements": [
+                   str(q) for q in dparams["layers"][0]["in_proj"].placements],
+               "logits_max_abs_err": err, "logits_tol": SP_TOL * scale,
+               "h_max_abs_err": h_err, "h_tol": SP_TOL * h_scale,
+               "sharded_ms": sharded_ms, "plain_ms": plain_ms,
+               "sharded_launches": launches}
+        rows[name] = row
+        del params, dparams, ref, ref_cache, logits, cache, h
+        gc.collect()
+        torch.cuda.empty_cache()
+        if err > SP_TOL * scale or h_err > SP_TOL * h_scale or \
+                any(launches.values()):
+            fail(f"parallel:prefill: {name}: {row}")
+    emit({"phase": "parallel:prefill", "ok": True, "card": smi,
+          "mesh": {"data": 1, "model": 1}, "models": rows})
+
+
 def phase_pod(torch, seed: int, smi: str, train_step_s: float) -> int:
     """``train:pod``: the training launcher's pod path in process on the
     world-size-1 group (see the module docstring).  Returns its peak
@@ -2792,35 +2941,64 @@ def phase_dryrun_pod(torch, smi: str, measured: int) -> None:
 
 
 def start_dryrun(out_dir: str):
-    """``dryrun:qwen3``'s subprocess (CPU only), started early so that it
-    runs beside the card's phases."""
+    """``dryrun:qwen3``'s subprocesses (CPU only), started early so that
+    they run beside the card's phases: qwen3's three shapes, and the SSM
+    members' ``prefill_32k``, one process each."""
     import os
-    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-           DRYRUN_ARCH, "--out", out_dir]
-    return cmd, time.perf_counter(), subprocess.Popen(
+    cmds = [[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--out", out_dir] + shape
+            for arch, shape in [(DRYRUN_ARCH, [])] + [
+                (a, ["--shape", "prefill_32k"]) for a in DRYRUN_SSM]]
+    return cmds, time.perf_counter(), [subprocess.Popen(
         cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True, env={**os.environ, "PYTHONPATH": str(SRC),
-                        "OMP_NUM_THREADS": "1"})
+                        "OMP_NUM_THREADS": "1"}) for cmd in cmds]
 
 
 def phase_dryrun(started, out_dir: str, smi: str) -> None:
-    """``dryrun:qwen3``: the dry-run's three records and roofline rows."""
+    """``dryrun:qwen3``: the dry-run's three records and roofline rows, and
+    the SSM members' ``prefill_32k`` records held to their bounds."""
     from repro_torch.launch import roofline
-    cmd, t0, proc = started
+    cmds, t0, procs = started
+    outs = []
     try:
-        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        for proc in procs:
+            outs.append(proc.communicate(
+                timeout=max(1.0, DRYRUN_TIMEOUT_S
+                            - (time.perf_counter() - t0))))
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        fail(f"dryrun:qwen3: rc {proc.returncode}: {out[-1500:]} "
-             f"{err[-1500:]}")
-    recs = {}
+    for cmd, proc, (out, err) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            fail(f"dryrun:qwen3: {' '.join(cmd[2:])}: rc {proc.returncode}:"
+                 f" {out[-1500:]} {err[-1500:]}")
+    recs, ssm = {}, {}
     for f in sorted(Path(out_dir).glob("*.json")):
         rec = json.loads(f.read_text())
-        recs[rec["shape"]] = rec
+        if rec["arch"] == DRYRUN_ARCH:
+            recs[rec["shape"]] = rec
+        else:
+            ssm[rec["arch"]] = rec
+    ssm_rows = {}
+    for arch, (jax_temp, over) in DRYRUN_SSM.items():
+        rec = ssm.get(arch)
+        if rec is None or rec["shape"] != "prefill_32k":
+            fail(f"dryrun:qwen3: no {arch} prefill_32k record: {sorted(ssm)}")
+        mem = rec["memory_analysis"]
+        ssm_rows[arch] = {
+            "shape": rec["shape"], "memory_analysis": mem,
+            "flops_per_rank": rec["flops_per_rank"],
+            "temp_gb": mem["temp_size_in_bytes"] / 1e9,
+            "jax_temp_gb_xla_cpu_buffer_assignment": jax_temp / 1e9,
+            "temp_bound_gb": over * jax_temp / 1e9,
+            "collective_counts": rec["collectives"]["counts"]}
+        if mem["temp_size_in_bytes"] > over * jax_temp:
+            fail(f"dryrun:qwen3: {arch} prefill_32k temp over {over}x the "
+                 f"JAX record's: {ssm_rows[arch]}")
     rows = {r.shape: r for r in roofline.load_rows("single",
                                                    directory=out_dir)}
     shapes = ("train_4k", "prefill_32k", "decode_32k")
@@ -2834,7 +3012,7 @@ def phase_dryrun(started, out_dir: str, smi: str) -> None:
         fail(f"dryrun:qwen3: a rank's argument + temp reaches the card's "
              f"{DRYRUN_RANK_BYTES / 1e9:.0f} GB: {peak}")
     emit({"phase": "dryrun:qwen3", "ok": True, "card": smi,
-          "command": " ".join(["python", "-m"] + cmd[2:]),
+          "commands": [" ".join(["python", "-m"] + c[2:]) for c in cmds],
           "seconds": seconds, "mesh": recs["train_4k"]["mesh_shape"],
           "counts": "PyTorch's (per-rank ops of the traced step), not XLA's",
           "rank_bytes_limit_gb": DRYRUN_RANK_BYTES / 1e9,
@@ -2858,7 +3036,8 @@ def phase_dryrun(started, out_dir: str, smi: str) -> None:
               "dominant": rows[s].dominant,
               "model_flops": rows[s].model_flops,
               "model_over_traced": rows[s].useful_ratio}
-              for s in shapes}})
+              for s in shapes},
+          "ssm_prefill_32k": ssm_rows})
 
 
 def phase_quickstart(smi: str) -> None:
@@ -2974,6 +3153,7 @@ def main(argv=None) -> int:
     try:
         for k, v in phase_parallel(torch, args.seed, smi).items():
             launches[k] = launches.get(k, 0) + v
+        phase_sharded_prefill(torch, args.seed, smi)
         pod_peak = phase_pod(torch, args.seed, smi, train_step_s)
         phase_dryrun_pod(torch, smi, pod_peak)
     finally:

@@ -26,7 +26,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models.layers import apply_rope, rms_norm
 from repro_torch.parallel.collectives import (contiguous_strides, einsum,
-                                           flash_decode, is_dtensor)
+                                           flash_decode, is_dtensor, pad,
+                                           settle)
 
 NEG_INF = -1e30
 _CHUNK = 512          # KV chunk for the online-softmax loop
@@ -112,10 +113,10 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0,
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     if sk % chunk:                                   # pad kv to chunk multiple
-        pad = chunk - sk % chunk
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-        k_pos = torch.nn.functional.pad(k_pos, (0, pad), value=2 ** 30)
+        extra = chunk - sk % chunk
+        k = pad(k, (0, 0, 0, 0, 0, extra))
+        v = pad(v, (0, 0, 0, 0, 0, extra))
+        k_pos = pad(k_pos, (0, extra), value=2 ** 30)
     nk = k.shape[1] // chunk
     k = _expand_kv(k, h)
     v = _expand_kv(v, h)
@@ -124,14 +125,21 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0,
     for i in range(nk):
         sl = slice(i * chunk, (i + 1) * chunk)
         logits = einsum("bqhk,bshk->bhqs", qf, k[:, sl].float())
-        logits = logits + _mask_bias(q_pos, k_pos[sl], causal, window)[None, None]
+        bias = _mask_bias(q_pos, k_pos[sl], causal, window)[None, None]
+        # a DTensor chunk outside autograd takes the bias, the shift and the
+        # exp in its own storage, as XLA fuses them: one rank's (B,H,Sq,
+        # chunk) scores are a few GB where no mesh dim shards the heads
+        in_place = is_dtensor(logits) and not logits.requires_grad
+        logits = settle(logits).add_(bias) if in_place else logits + bias
         m_new = torch.maximum(m, logits.amax(dim=-1))
         alpha = torch.exp(m - m_new)
-        p = torch.exp(logits - m_new[..., None])
+        p = logits.sub_(m_new[..., None]).exp_() if in_place else \
+            torch.exp(logits - m_new[..., None])
         l = l * alpha + p.sum(dim=-1)
         acc = acc * alpha.transpose(1, 2)[..., None] + \
             einsum("bhqs,bshk->bqhk", p, v[:, sl].float())
         m = m_new
+        del logits, p         # before the next chunk's scores are made
     out = acc / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
     return out.to(q.dtype)
 

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from repro_torch import runtime_flags
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import axis_sizes, batch_axes
+from repro_torch.parallel import collectives
 from repro_torch.parallel.collectives import einsum, gather_dims, is_dtensor
 from repro_torch.parallel.sharding import P, constrain, to_placements
 
@@ -216,9 +217,9 @@ def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor
     g, ng, cap = capacity_plan(cfg, t)
     pad = ng * g - t
     if pad:           # padded tokens: expert 0 at zero combine weight
-        xt = F.pad(xt, (0, 0, 0, pad))
-        weights = F.pad(weights, (0, 0, 0, pad))
-        idx = F.pad(idx, (0, 0, 0, pad))
+        xt = collectives.pad(xt, (0, 0, 0, pad))
+        weights = collectives.pad(weights, (0, 0, 0, pad))
+        idx = collectives.pad(idx, (0, 0, 0, pad))
     xg = _c(xt.reshape(ng, g, d), "B", None, None)
     wg = weights.reshape(ng, g, m.top_k)
     # a group's slots are ranked over all of its tokens: a DTensor whose

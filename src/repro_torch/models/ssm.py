@@ -12,6 +12,14 @@ out_proj.
 ``ssd_final_state`` is a second plain pass over the prompt for the state
 handed to decode, even when the scan ran on the kernel, as in the JAX
 package; ``ssm_decode_step`` advances that state one token in place.
+
+On DTensors whose ``in_proj`` columns are sharded over a mesh dim ("model")
+that the SSM heads divide, the full-sequence mixer keeps the heads sharded
+from the projection to ``out_proj``, as GSPMD places them
+(:func:`_project_parts`): z, x and dt sharded on their channels, B and C
+whole, the conv per part, the scan and the gated norm on the rank's heads.
+Elsewhere (plain tensors, or an ``in_proj`` whole over every mesh dim, as
+hymba's 6482 columns over 16) it runs as one projection and one conv.
 """
 from __future__ import annotations
 
@@ -20,7 +28,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import rms_norm
-from repro_torch.parallel.collectives import einsum, gather_dims, is_dtensor
+from repro_torch.parallel.collectives import (einsum, gather_dims,
+                                              is_dtensor, pad)
 
 
 def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
@@ -28,12 +37,49 @@ def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
     return torch.split(zxbcdt, [di, di, n, n, h], dim=-1)
 
 
+def _column_shards(w) -> list:
+    """The mesh dims that shard the columns (last dim) of a DTensor ``w``;
+    [] for a plain tensor."""
+    if not is_dtensor(w):
+        return []
+    from torch.distributed.tensor import Shard
+    return [m for m, q in enumerate(w.placements)
+            if isinstance(q, Shard) and q.dim == w.ndim - 1]
+
+
+def _project_parts(cfg: ModelConfig, xin, w):
+    """z, x, B, C, dt of a DTensor ``in_proj`` ``w`` whose columns are
+    sharded: each part projected with its own columns of ``w``, placed
+    ``Shard`` on its channel dim over each mesh dim of ``w``'s columns that
+    its heads (B and C: its N) divide.  The column blocks of one sharded
+    product do not line up with the parts, and DTensor's split of it would
+    gather the whole (B,S,E) projection.  Here only ``w`` is gathered, and
+    each rank runs the columns it would have run: B and C are gathered
+    after their product, (B,S,N) each."""
+    from torch.distributed.tensor import Shard
+    di, n, h = cfg.d_inner, cfg.ssm.d_state, cfg.ssm_heads
+    mesh, cols = w.device_mesh, _column_shards(w)
+    whole = gather_dims(w, (-1,))
+    parts, lo = [], 0
+    for width, units in ((di, h), (di, h), (n, n), (n, n), (h, h)):
+        pl, ways = list(whole.placements), 1
+        for m in cols:
+            if units % (ways * mesh.size(m)) == 0:
+                ways *= mesh.size(m)
+                pl[m] = Shard(1)
+        wp = whole[:, lo:lo + width].redistribute(mesh, pl)
+        parts.append(einsum("bsd,de->bse", xin, wp))
+        lo += width
+    z, x, bmat, cmat, dt = parts
+    return z, x, gather_dims(bmat, (2,)), gather_dims(cmat, (2,)), dt
+
+
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv.  xbc: (B,S,C), w: (K,C).  The K shifted
     products are summed in the JAX package's order (not ``F.conv1d``)."""
     k, s = w.shape[0], xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, k - 1, 0))
-    out = sum(pad[:, i:i + s, :] * w[i] for i in range(k))
+    xp = pad(xbc, (0, 0, k - 1, 0))
+    out = sum(xp[:, i:i + s, :] * w[i] for i in range(k))
     return F.silu(out)
 
 
@@ -73,12 +119,12 @@ def ssd_chunked(x, dt, A, bmat, cmat, chunk: int) -> torch.Tensor:
     chunks."""
     b, s, h, p = x.shape
     n = bmat.shape[-1]
-    pad = (-s) % chunk
-    if pad:
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        bmat = F.pad(bmat, (0, 0, 0, pad))
-        cmat = F.pad(cmat, (0, 0, 0, pad))
+    extra = (-s) % chunk
+    if extra:
+        x = pad(x, (0, 0, 0, 0, 0, extra))
+        dt = pad(dt, (0, 0, 0, extra))
+        bmat = pad(bmat, (0, 0, 0, extra))
+        cmat = pad(cmat, (0, 0, 0, extra))
     nc = x.shape[1] // chunk
     xc = x.reshape(b, nc, chunk, h, p)
     dtc = dt.reshape(b, nc, chunk, h)
@@ -115,11 +161,11 @@ def ssd_final_state(x, dt, A, bmat, chunk: int) -> torch.Tensor:
     states of :func:`ssd_chunked` carried through the chunk recurrence."""
     b, s, h, p = x.shape
     n = bmat.shape[-1]
-    pad = (-s) % chunk
-    if pad:
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        bmat = F.pad(bmat, (0, 0, 0, pad))
+    extra = (-s) % chunk
+    if extra:
+        x = pad(x, (0, 0, 0, 0, 0, extra))
+        dt = pad(dt, (0, 0, 0, extra))
+        bmat = pad(bmat, (0, 0, 0, extra))
     nc = x.shape[1] // chunk
     xc = x.reshape(b, nc, chunk, h, p)
     dtc = dt.reshape(b, nc, chunk, h)
@@ -149,12 +195,20 @@ def ssm_mixer(cfg: ModelConfig, p, xin: torch.Tensor, *,
     ``kernels.ops.ssd_scan`` (the Hopper kernel for CUDA tensors, its plain
     version for CPU tensors)."""
     s = cfg.ssm
-    zxbcdt = einsum("bsd,de->bse", xin, p["in_proj"])
-    z, x, bmat, cmat, dt = _split_proj(cfg, zxbcdt)
-    xbc_pre = torch.cat([x, bmat, cmat], -1)
-    xbc = _causal_conv(xbc_pre, p["conv_w"])
     di, n = cfg.d_inner, s.d_state
-    x, bmat, cmat = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
+    if _column_shards(p["in_proj"]):
+        # heads sharded: a projection and a depthwise conv per part (the
+        # conv of a concatenation is the concatenation of the convs)
+        z, *pre, dt = _project_parts(cfg, xin, p["in_proj"])
+        w = p["conv_w"]
+        x, bmat, cmat = (_causal_conv(t, w[:, a:b]) for t, a, b in zip(
+            pre, (0, di, di + n), (di, di + n, di + 2 * n)))
+    else:
+        zxbcdt = einsum("bsd,de->bse", xin, p["in_proj"])
+        z, x, bmat, cmat, dt = _split_proj(cfg, zxbcdt)
+        pre = [torch.cat([x, bmat, cmat], -1)]
+        xbc = _causal_conv(pre[0], p["conv_w"])
+        x, bmat, cmat = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
     bsz, slen = xin.shape[0], xin.shape[1]
     x = x.reshape(bsz, slen, cfg.ssm_heads, s.head_dim).float()
     dt = softplus(dt.float() + p["dt_bias"])
@@ -171,8 +225,9 @@ def ssm_mixer(cfg: ModelConfig, p, xin: torch.Tensor, *,
     if not return_state:
         return out
     hfinal = ssd_final_state(x, dt, A, bmat.float(), s.chunk)
-    tail = xbc_pre[:, -(s.d_conv - 1):]
-    tail = F.pad(tail, (0, 0, s.d_conv - 1 - tail.shape[1], 0))
+    tails = [gather_dims(t[:, -(s.d_conv - 1):], (2,)) for t in pre]
+    tail = tails[0] if len(tails) == 1 else torch.cat(tails, -1)
+    tail = pad(tail, (0, 0, s.d_conv - 1 - tail.shape[1], 0))
     return out, hfinal, tail
 
 

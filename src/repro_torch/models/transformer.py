@@ -46,7 +46,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.cache import init_cache
 from repro_torch.models.layers import apply_rope, embed, rms_norm, swiglu, unembed
 from repro_torch.models.moe import moe_ffn
-from repro_torch.parallel.collectives import einsum
+from repro_torch.parallel.collectives import einsum, is_dtensor
 from repro_torch.parallel.sharding import P, constrain
 
 
@@ -321,9 +321,17 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
 # --------------------------------------------------------------------------
 def _ring_fill(dst: torch.Tensor, k: torch.Tensor) -> None:
     """Write the last min(S, L) timesteps of k (B,S,...) into their slots
-    ``p % L`` of the L-slot ring ``dst`` (B,L,...)."""
+    ``p % L`` of the L-slot ring ``dst`` (B,L,...).  A DTensor ring takes
+    the two runs of consecutive slots as two slice copies: torch 2.11's
+    DTensor has no sharding for the indexed copy."""
     s, L = k.shape[1], dst.shape[1]
     take = min(s, L)
+    if is_dtensor(dst):
+        first, n = (s - take) % L, min(take, L - (s - take) % L)
+        dst[:, first:first + n] = k[:, s - take:s - take + n]
+        if n < take:
+            dst[:, :take - n] = k[:, s - take + n:]
+        return
     slots = (torch.arange(take, device=k.device) + (s - take)) % L
     dst[:, slots] = k[:, s - take:]
 

@@ -29,6 +29,7 @@ hold (B,S,V) over the whole vocabulary.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -111,6 +112,43 @@ def gather_dims(t, dims: Sequence[int]):
           for p in t.placements]
     return t if pl == list(t.placements) else t.redistribute(t.device_mesh,
                                                              pl)
+
+
+def pad(t, widths: Sequence[int], value: float = 0.0):
+    """``F.pad(t, widths, value=value)``; a DTensor is padded rank by rank,
+    each its own part, pending sums settled first.  A mesh dim that shards
+    a padded dim moves its shard (an all-to-all) to the first dim that is
+    not padded and that it divides, with the mesh dims already sharding
+    that dim, else is gathered: the placement DTensor's ``constant_pad_nd``
+    strategy picks in torch 2.13.  Torch 2.11's strategy returns a spec
+    of one placement on a two-dim mesh, which the next op refuses."""
+    import torch.nn.functional as F
+    if not is_dtensor(t):
+        return F.pad(t, widths, value=value)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    shape = list(t.shape)
+    for i in range(len(widths) // 2):
+        shape[t.ndim - 1 - i] += widths[2 * i] + widths[2 * i + 1]
+    padded = {d for d in range(t.ndim) if shape[d] != t.shape[d]}
+    mesh, pl = t.device_mesh, list(t.placements)
+
+    def ways(d):       # the ranks that split dim d under pl
+        return math.prod(mesh.size(m) for m, o in enumerate(pl)
+                         if isinstance(o, Shard) and o.dim == d)
+
+    for m, q in enumerate(pl):
+        if isinstance(q, Shard) and q.dim in padded:
+            pl[m] = Replicate()
+            to = [d for d in range(t.ndim) if d not in padded
+                  and t.shape[d] % (ways(d) * mesh.size(m)) == 0]
+            pl[m] = Shard(to[0]) if to else Replicate()
+    t = settle(t)
+    if pl != list(t.placements):
+        t = t.redistribute(mesh, pl)
+    return DTensor.from_local(F.pad(t.to_local(), widths, value=value),
+                              mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_strides(shape))
 
 
 def embedding(tokens, table):

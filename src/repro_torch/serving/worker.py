@@ -131,6 +131,9 @@ DISPATCH_AHEAD = 16     # default outstanding async dispatches (K):
                         # (non-preemptible) window, so latency-sensitive
                         # mixed-traffic deployments set it small (1-2)
 
+STAGE_BYTES = 64 << 20  # each of the two pinned buffers a parameter tree is
+                        # uploaded through (upload_tree)
+
 # worker health states (exported via serving_gauges / GET /metrics)
 HEALTH_READY = 0        # all stage threads alive and making progress
 HEALTH_DEGRADED = 1     # a stage has been mid-work past the watchdog
@@ -204,6 +207,50 @@ class _OpenBatch:
         self.fill = 0
         self.spans: List[Span] = []
         self.deadline = deadline     # linger expiry (perf_counter seconds)
+
+
+def upload_tree(params, device: torch.device, stream: "torch.cuda.Stream"):
+    """A host parameter tree's copy on ``device``: uploaded on ``stream``
+    through two pinned ``STAGE_BYTES`` buffers in turns, and landed when
+    this returns.  Pageable copies on the card's default stream, where
+    every worker's forward runs, would hold the forward then in flight for
+    the whole upload (seconds for a full-width qwen3-1.7b), long enough for
+    the supervisor to read a sibling as stalled.  Each destination is
+    allocated on the caller's stream, which uses it next; its copy waits
+    for the work that stream had queued, which may still read the block's
+    earlier tenant."""
+    compute = torch.cuda.current_stream(device)
+    bufs = [torch.empty(STAGE_BYTES, dtype=torch.uint8, pin_memory=True)
+            for _ in range(2)]
+    done = [None, None]
+    turn = 0
+
+    def put(t):
+        nonlocal turn
+        if t.device.type != "cpu":
+            return t.to(device)
+        dst = torch.empty(t.shape, dtype=t.dtype, device=device)
+        stream.wait_stream(compute)
+        src = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        out = dst.view(-1).view(torch.uint8)
+        for lo in range(0, src.numel(), STAGE_BYTES):
+            n = min(STAGE_BYTES, src.numel() - lo)
+            if done[turn] is not None:
+                done[turn].synchronize()      # its last copy has read it
+            bufs[turn][:n].copy_(src[lo:lo + n])
+            with torch.cuda.stream(stream):
+                out[lo:lo + n].copy_(bufs[turn][:n], non_blocking=True)
+                done[turn] = torch.cuda.Event()
+                done[turn].record(stream)
+            turn ^= 1
+        return dst
+
+    try:
+        return kquant.tree_map(put, params)
+    finally:
+        # also after a failed allocation: no copy may go on writing into a
+        # block the allocator hands out again
+        stream.synchronize()
 
 
 class Worker:
@@ -344,7 +391,11 @@ class Worker:
                 # what the device holds (~dtype_bytes/4 the fp32 footprint);
                 # the forward dequantizes one matrix at a time
                 params = kquant.quantize_params(params, self.member_dtype)
-            self.params = kquant.tree_map(lambda t: t.to(self._device), params)
+            if self._cuda:
+                self.params = upload_tree(params, self._device, self._copy)
+            else:
+                self.params = kquant.tree_map(
+                    lambda t: t.to(self._device), params)
             # a cross-attention member's frontend embeddings, on the device;
             # each batch reads its first rows (zeros unless given)
             self.frontend = None
@@ -457,7 +508,11 @@ class Worker:
         crashed or exited; DEGRADED when a stage has been ACTIVE (mid-work,
         not blocked on an empty queue) longer than ``watchdog_s``; READY
         otherwise.  WAIT-state stamps never age into DEGRADED — an idle
-        worker is healthy."""
+        worker is healthy, and so is a batcher blocked on the free ring
+        slots, which waits on the stages after it.  The predictor and the
+        sender restamp after every chunk, so ACTIVE ages over one chunk's
+        work: a dispatch round of many chunks on a card that every cell
+        shares can outlast the watchdog while each chunk progresses."""
         if self.crashed.is_set():
             return HEALTH_DEAD
         if self._threads and not all(t.is_alive() for t in self._threads):
@@ -505,13 +560,20 @@ class Worker:
                 except queue.Empty:
                     slot = None
             else:
+                # backpressure: the wait is on the stages after this one
+                hb = self._hb["batcher"]
+                hb[:] = [_HB_WAIT, time.perf_counter()]
                 while True:
                     try:
                         slot = self._free_slots.get(timeout=0.002)
                         break
                     except queue.Empty:
                         if self.input_queue.depth(seg.PRIORITY_HIGH):
-                            return None       # high work first; retry after
+                            slot = None
+                            break
+                hb[:] = [_HB_ACTIVE, time.perf_counter()]
+                if slot is None:
+                    return None           # high work first; retry after
             if slot is not None:
                 buf = self._ring[slot]
         if buf is None:        # side pool: mismatched seq or express overflow
@@ -905,6 +967,7 @@ class Worker:
                                     break
                     mine = None
                     group.append((chunk, y, ev, t0, False))
+                    hb[:] = [_HB_ACTIVE, time.perf_counter()]   # progress
             finally:
                 # a round always reaches the chunk it staged; a crash
                 # mid-round leaves no copy reading a slot, and no buffer
@@ -975,6 +1038,7 @@ class Worker:
             for chunk, y, ev, t_dispatch, skipped in batch:
                 self._send_chunk(chunk, y, ev, skipped, staging, on_device,
                                  profiled)
+                hb[:] = [_HB_ACTIVE, time.perf_counter()]   # progress
             now = self.timers.timed("transfer", t0)   # sync+scatter, group
             if tr is not None and tr.enabled:
                 # grouped single span: slot a carries the group's shared

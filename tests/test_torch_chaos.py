@@ -402,6 +402,27 @@ def test_spawn_fault_and_controller_backoff(ens2):
         s.shutdown()
 
 
+def test_long_round_of_progressing_chunks_is_not_a_stall(ens2):
+    """Port-only (the JAX worker stamps a stage once a round): a dispatch
+    round of several chunks, and the batcher's wait for a free ring slot
+    behind it, may outlast the watchdog while every chunk progresses, as
+    on a card whose default stream every cell shares.  The predictor and
+    the sender restamp after each chunk and the slot wait is a WAIT, so
+    nothing is quarantined and every request completes whole."""
+    cfgs, params = ens2
+    s = make_system(cfgs, params, [[8, 8]], fake=True,
+                    fake_delay_us=120_000, segment_size=8, watchdog_s=0.3)
+    try:
+        hs = [s.predict_async(_X(48, seed=i)) for i in range(2)]
+        Ys = [h.result(60.0) for h in hs]
+        assert all(y.shape[0] == 48 for y in Ys)
+        assert [h.quality for h in hs] == [1.0, 1.0]
+        c = s.serving_counters()
+        assert not c.get("stalls_detected") and not c.get("quarantines"), c
+    finally:
+        s.shutdown()
+
+
 def test_join_reports_stuck_threads(ens2):
     """Worker.join must name the stage threads that failed to stop instead
     of silently returning."""

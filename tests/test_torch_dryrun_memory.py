@@ -4,8 +4,11 @@ attention's carries stay sharded as the queries are, the prefill record's
 argument is the params and tokens alone with the cache among its outputs
 (as the JAX step makes it inside), the vocab-parallel cross-entropy equals
 the plain one with vocabulary padding and label -100 on 2 x 4 and 1 x 1
-``gloo`` meshes, and hymba's ``long_500k`` under ``cache_seqshard`` fails in
-both packages for the same cause.  Every process group lives in a
+``gloo`` meshes, hymba's ``long_500k`` under ``cache_seqshard`` fails in
+both packages for the same cause, the sharded SSM mixer keeps its heads
+sharded over "model" (no chunk states of all the heads on a rank), and the
+chunked attention of heads that divide no mesh dim keeps at most two
+chunks of scores live.  Every process group lives in a
 subprocess of its own, with its own timeout."""
 import json
 import os
@@ -131,6 +134,88 @@ def test_prefill_record_argument_is_params_and_tokens(fake_2x4):
     logits = rec["output_size_in_bytes"] - fake_2x4["cache_local"]
     assert 0 < logits <= 4 * fake_2x4["vocab_pad"] * 2, rec
     assert rec["alias_size_in_bytes"] == 0
+
+
+@pytest.fixture(scope="module")
+def fake_2x4_ssm():
+    """On a fake 2 x 4 mesh: the largest storage of the prefill step of
+    reduced mamba2 (16 SSM heads, 1072 ``in_proj`` columns, both over the
+    4-way "model" axis; B 4, S 1024: 64 chunks of 16), and the most
+    storages at least as large as one rank's chunk of scores (B/2, 5, S,
+    512) f32 that are live at once in the prefill step of reduced hymba
+    with 5 attention and 5 kv heads (B 4, S 2560: five chunks)."""
+    code = """
+        import dataclasses, json, sys
+        sys.path.insert(0, "src")
+        import torch
+        torch.set_num_threads(1)
+        import repro_torch.configs as C
+        from repro_torch.configs import get_config
+        from repro_torch.launch import hlo_analysis as H
+        from repro_torch.launch.dryrun import fake_process_group
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.launch.steps import lower_step
+
+        big = {"floor": 0, "live": 0, "most": 0, "largest": 0}
+
+        class Counted(H.Memory):
+            def alloc(self, storage):
+                super().alloc(storage)
+                n = storage.nbytes()
+                big["largest"] = max(big["largest"], n)
+                if big["floor"] and n >= big["floor"]:
+                    big["live"] += 1
+                    big["most"] = max(big["most"], big["live"])
+
+            def free(self, key, n, num):
+                super().free(key, n, num)
+                if big["floor"] and n >= big["floor"]:
+                    big["live"] -= 1
+
+        H.Memory = Counted
+        C.INPUT_SHAPES["f3_ssm"] = dict(seq_len=1024, global_batch=4,
+                                        kind="prefill")
+        C.INPUT_SHAPES["f3_attn"] = dict(seq_len=2560, global_batch=4,
+                                         kind="prefill")
+        fake_process_group(8)
+        mesh = make_host_mesh(2, 4)
+        cfg = get_config("mamba2-1.3b").reduced()
+        lower_step(cfg, "f3_ssm", mesh)
+        s = cfg.ssm
+        out = {"ssm_largest": big["largest"], "batch": 4, "seq": 1024,
+               "heads": cfg.ssm_heads, "p": s.head_dim, "n": s.d_state,
+               "chunk": s.chunk}
+        hcfg = dataclasses.replace(get_config("hymba-1.5b").reduced(),
+                                   num_heads=5, num_kv_heads=5)
+        big.update(floor=4 // 2 * 5 * 2560 * 512 * 4, live=0, most=0)
+        lower_step(hcfg, "f3_attn", mesh)
+        out.update(scores_bytes=big["floor"], scores_live=big["most"])
+        print(json.dumps(out))
+    """
+    return _run(code)
+
+
+def test_sharded_ssm_prefill_keeps_the_heads_sharded(fake_2x4_ssm):
+    """No storage of reduced mamba2's sharded prefill is as large as one
+    rank's (B/2, nc, H, P, N) f32 chunk states with all H heads: the
+    projection, the conv, the scan and the final state run on the rank's
+    H/4 heads (``models/ssm.py::_project_parts``)."""
+    r = fake_2x4_ssm
+    states = r["batch"] // 2 * (r["seq"] // r["chunk"]) * r["heads"] * \
+        r["p"] * r["n"] * 4
+    assert r["ssm_largest"] < states, r
+
+
+def test_chunked_attention_keeps_two_chunks_of_scores(fake_2x4_ssm):
+    """With heads that divide no mesh dim (head_dim sharded, so each rank's
+    reduced scores hold all the heads), at most two storages of one rank's
+    (B/2, H, S, 512) f32 chunk scores are live at once in the sharded
+    prefill: the einsum's part and its reduced sum, which then takes the
+    bias, the shift and the exp in place (``attention.chunked_attention``).
+    Out of place, the bias, the shift, the exp and the last chunk's
+    probabilities made four."""
+    r = fake_2x4_ssm
+    assert 1 <= r["scores_live"] <= 2, r
 
 
 _CE_RANK = """

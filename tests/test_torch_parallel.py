@@ -16,10 +16,17 @@ inputs:
   fewer products run than under full remat;
 * the training step on that mesh (params placed per ``param_specs``, the
   batch by ``shard_batch``): reduced qwen3 (baseline and ``fsdp``) and
-  granite (dense MoE, and the capacity MoE under ``moe_ep``), the loss
-  and every gradient leaf within 1e-5·max(1, max|g|) of
-  ``jax.value_and_grad``, and 3 AdamW steps' losses within 1e-5 of the
-  plain ``train_step``'s."""
+  granite (dense MoE, and the capacity MoE under ``moe_ep``), reduced
+  mamba2 and hymba (their 16 SSM heads and 1072-column ``in_proj``
+  sharded over "model") and hymba with 5 attention heads, which divide no
+  mesh dim: the loss and every gradient leaf within 1e-5·max(1, max|g|)
+  of ``jax.value_and_grad``, and 3 AdamW steps' losses within 1e-5 of
+  the plain ``train_step``'s;
+* the sharded prefill step (``launch.steps.build_prefill_step``) on that
+  mesh for reduced mamba2, hymba and 5-head hymba, a prompt longer than
+  ``_DENSE_MAX`` (the chunked attention and many SSM chunks): the
+  last-token logits and every cache tensor within 1e-5 of JAX's
+  ``prefill``."""
 import dataclasses
 import os
 import socket
@@ -286,15 +293,42 @@ def test_dots_remat_policy(arch):
     assert dots_n < full_n, (dots_n, full_n)
 
 
-# ---- the pod path's gradients on the 2 x 4 mesh ------------------------------
+# ---- the pod path's gradients and the sharded prefill on the 2 x 4 mesh -----
 
 # (config, variant): the "model" axis of 4 shards the heads (qwen3's wq),
-# head_dim (its wk and wv: 2 kv heads), the vocabulary and the experts;
+# head_dim (its wk and wv: 2 kv heads), the vocabulary, the experts and the
+# SSM heads (mamba2's and hymba's 16, with their 1072 in_proj columns);
 # "fsdp" adds "data" to the params, so the gradients reduce-scatter onto them
 POD_CASES = [("qwen3-1.7b", "baseline"), ("qwen3-1.7b", "fsdp"),
              ("granite-moe-3b-a800m", "baseline"),
-             ("granite-moe-3b-a800m:capacity", "moe_ep")]
+             ("granite-moe-3b-a800m:capacity", "moe_ep"),
+             ("mamba2-1.3b", "baseline"), ("hymba-1.5b", "baseline"),
+             ("hymba-1.5b:heads5", "baseline")]
 POD_STEPS = 3
+# the prefill's prompt is longer than attention._DENSE_MAX (2048): the
+# chunked attention runs, with a padded last KV chunk, and the SSM scans 131
+# chunks of 16
+PREFILL_CASES = ["mamba2-1.3b", "hymba-1.5b", "hymba-1.5b:heads5"]
+PREFILL_B, PREFILL_S = 2, 2096
+# collectives.pad's placements ("data", "model"): a tensor dim, -1 for
+# none; dim 1, the padded one, moves to dim 2 where it is sharded
+PAD_CASES = [(0, 1), (0, 2), (-1, 1), (1, -1), (-1, -1)]
+
+# A case's config: the reduced config of "arch", changed by its suffix:
+# ":capacity" the MoE's dispatch, ":heads5" 5 attention and 5 kv heads
+# (hymba), which divide neither mesh dim, so head_dim is sharded.  The
+# rank script runs the same source with the port's ``get_config``.
+_CONFIG_SRC = """
+def config(name, get=get_config):
+    arch, _, change = name.partition(":")
+    cfg = get(arch).reduced()
+    if change == "heads5":
+        return dataclasses.replace(cfg, num_heads=5, num_kv_heads=5)
+    if change:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, impl=change))
+    return cfg
+"""
 
 _POD_RANK = """
 import os, sys
@@ -307,6 +341,7 @@ from repro_torch import runtime_flags
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import shard_batch
 from repro_torch.launch.mesh import join_process_group, make_host_mesh
+from repro_torch.launch.steps import build_prefill_step
 from repro_torch.models import init_params
 from repro_torch.models.transformer import param_shapes
 from repro_torch.parallel import sharding as shd
@@ -318,30 +353,27 @@ join_process_group(cpu=True)
 mesh = make_host_mesh(2, 4)
 d = dict(np.load(sys.argv[1]))
 res = {}
+%s
+
+def placed(name, cfg, key):   # a copy: a replicated leaf is the tensor given
+    like = init_params(cfg, 0, "cpu")
+    return shd.place(T.unflatten(like, [
+        torch.tensor(d[f"{name}:{key}:{p}"])
+        for p, _ in T.flatten_with_paths(like)]),
+        shd.param_specs(cfg, param_shapes(cfg), mesh), mesh)
+
 with implicit_replication():
     for i, (name, variant) in enumerate(%r):
         runtime_flags.set_variant(variant, mesh)
-        arch, _, impl = name.partition(":")
-        cfg = get_config(arch).reduced()
-        if impl:
-            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-                cfg.moe, impl=impl))
-        like = init_params(cfg, 0, "cpu")
-        paths = [p for p, _ in T.flatten_with_paths(like)]
-        specs = shd.param_specs(cfg, param_shapes(cfg), mesh)
-
-        def placed():     # a copy: a replicated leaf is the tensor given
-            return shd.place(T.unflatten(like, [
-                torch.tensor(d[f"{name}:p:{p}"]) for p in paths]),
-                specs, mesh)
-
+        cfg = config(name)
         batch = shard_batch({"tokens": d[f"{name}:tokens0"],
                              "labels": d[f"{name}:labels0"]}, mesh)
-        loss, _, grads = loss_and_grads(placed(), cfg, batch, remat=True)
+        loss, _, grads = loss_and_grads(placed(name, cfg, "p"), cfg, batch,
+                                        remat=True)
         res[f"{i}:loss"] = loss.full_tensor().numpy()
         for p, g in T.flatten_with_paths(grads):
             res[f"{i}:g:{p}"] = g.full_tensor().numpy()
-        params = placed()
+        params = placed(name, cfg, "p")
         state = opt.init(params)
         step = make_train_step(cfg, opt.AdamWConfig(total_steps=%d),
                                remat=True)
@@ -350,7 +382,27 @@ with implicit_replication():
                                  "labels": d[f"{name}:labels{s}"]}, mesh)
             params, state, m = step(params, state, batch)
             res[f"{i}:step{s}"] = m["loss"].full_tensor().numpy()
-runtime_flags.set_variant("baseline")
+    runtime_flags.set_variant("baseline")
+    for name in %r:
+        cfg = config(name)
+        tokens = shard_batch({"t": d[f"{name}:prompt"]}, mesh)["t"]
+        logits, cache = build_prefill_step(cfg, %d, mesh)(
+            placed(name, cfg, "pp"), tokens)
+        res[f"{name}:logits"] = logits.full_tensor().numpy()
+        for p, t in T.flatten_with_paths(cache):
+            res[f"{name}:c:{p}"] = t.full_tensor().numpy()
+    # collectives.pad on each placement of a (4, 16, 8) tensor, padding dim
+    # 1, and the gradient of the sum of its squares
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.parallel.collectives import pad
+    for i, pl in enumerate(%r):
+        t = distribute_tensor(torch.tensor(d["pad:x"]), mesh,
+                              [Shard(p) if p >= 0 else Replicate()
+                               for p in pl]).requires_grad_(True)
+        out = pad(t, (0, 0, 3, 1), value=0.5)
+        (out * out).sum().backward()
+        res[f"pad{i}"] = out.full_tensor().detach().numpy()
+        res[f"pad{i}:grad"] = t.grad.full_tensor().numpy()
 if int(os.environ["RANK"]) == 0:
     np.savez(sys.argv[2], **res)
 import torch.distributed as dist
@@ -359,12 +411,9 @@ dist.destroy_process_group()
 
 
 def _pod_config(name, get):
-    arch, _, impl = name.partition(":")
-    cfg = get(arch).reduced()
-    if impl:
-        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
-                                                               impl=impl))
-    return cfg
+    scope = {"dataclasses": dataclasses, "get_config": get}
+    exec(_CONFIG_SRC, scope)
+    return scope["config"](name)
 
 
 def _pod_batches(vocab, seed):
@@ -379,45 +428,50 @@ def _pod_batches(vocab, seed):
     return out
 
 
+def _feed_params(feed, prefix, jp):
+    for p, a in T.flatten_with_paths(jax.tree.map(np.asarray, jp)):
+        feed[f"{prefix}:{p}"] = a
+
+
 @pytest.fixture(scope="module")
 def pod_runs(tmp_path_factory):
-    """Per case: the 8 ranks' loss, gradients and POD_STEPS train-step
-    losses; JAX's loss and gradients on the first batch; and the port's
-    plain train steps on the same params and batches."""
+    """The 8 ranks' results: per POD case the loss, gradients and POD_STEPS
+    train-step losses, per PREFILL case the gathered logits and cache.
+    While the ranks run, the references: per POD case JAX's loss and
+    gradients on the first batch and the port's plain train steps on the
+    same params and batches, per PREFILL case JAX's ``prefill`` of the same
+    params and prompt, run op by op (``jax.disable_jit``): under ``jit``
+    XLA fuses RoPE's sin and cos into an approximation that differs from
+    its own unfused ones by 3.4e-5 at positions near 2000 (hymba's ``k``),
+    where the port's RoPE matches the unfused ones within 1e-6."""
     from repro_torch.training import optimizer as opt
     from repro_torch.training.train_loop import make_train_step
     tmp = tmp_path_factory.mktemp("pod")
-    feed, want = {}, []
+    feed, cases, prompts = {}, [], {}
     for name, _ in POD_CASES:
         jcfg = _pod_config(name, jget_config)
         jp = M.init_params(jax.random.PRNGKey(5), jcfg)
         batches = _pod_batches(jcfg.vocab_size, 6)
-        (jl, _), jg = jax.value_and_grad(
-            lambda p: jloss_fn(p, jcfg, jnp.asarray(batches[0][0]),
-                               jnp.asarray(batches[0][1])),
-            has_aux=True)(jp)
-        np_params = jax.tree.map(np.asarray, jp)
-        for p, a in T.flatten_with_paths(np_params):
-            feed[f"{name}:p:{p}"] = a
+        _feed_params(feed, f"{name}:p", jp)
         for s, (toks, labs) in enumerate(batches):
             feed[f"{name}:tokens{s}"], feed[f"{name}:labels{s}"] = toks, labs
-        cfg = _pod_config(name, get_config)
-        params = params_from_numpy(np_params, "cpu")
-        state = opt.init(params)
-        step = make_train_step(cfg, opt.AdamWConfig(total_steps=POD_STEPS),
-                               remat=True)
-        plain = []
-        for toks, labs in batches:
-            params, state, m = step(params, state,
-                                    {"tokens": toks, "labels": labs})
-            plain.append(float(m["loss"]))
-        want.append((float(jl), T.flatten_with_paths(
-            jax.tree.map(np.asarray, jg)), plain))
+        cases.append((name, jcfg, jp, batches))
+    for name in PREFILL_CASES:
+        jcfg = _pod_config(name, jget_config)
+        jp = M.init_params(jax.random.PRNGKey(7), jcfg)
+        toks = np.random.default_rng(8).integers(
+            0, jcfg.vocab_size, (PREFILL_B, PREFILL_S)).astype(np.int32)
+        _feed_params(feed, f"{name}:pp", jp)
+        feed[f"{name}:prompt"] = toks
+        prompts[name] = (jcfg, jp, jnp.asarray(toks))
+    feed["pad:x"] = np.random.default_rng(9).standard_normal(
+        (4, 16, 8)).astype(np.float32)
     np.savez(tmp / "in.npz", **feed)
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
            "OMP_NUM_THREADS": "1"}
     port = _free_port()
-    code = _POD_RANK % (POD_CASES, POD_STEPS, POD_STEPS)
+    code = _POD_RANK % (_CONFIG_SRC, POD_CASES, POD_STEPS, POD_STEPS,
+                        PREFILL_CASES, PREFILL_S, PAD_CASES)
     ranks = [subprocess.Popen(
         [sys.executable, "-c", code, str(tmp / "in.npz"),
          str(tmp / "torch.npz")], cwd=ROOT, stdout=subprocess.PIPE,
@@ -426,13 +480,36 @@ def pod_runs(tmp_path_factory):
              "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)})
         for r in range(8)]
     try:
-        outs = [p.communicate(timeout=240) for p in ranks]
+        want, want_prefill = [], {}
+        for name, jcfg, jp, batches in cases:
+            (jl, _), jg = jax.value_and_grad(
+                lambda p: jloss_fn(p, jcfg, jnp.asarray(batches[0][0]),
+                                   jnp.asarray(batches[0][1])),
+                has_aux=True)(jp)
+            cfg = _pod_config(name, get_config)
+            params = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+            state = opt.init(params)
+            step = make_train_step(cfg, opt.AdamWConfig(total_steps=POD_STEPS),
+                                   remat=True)
+            plain = []
+            for toks, labs in batches:
+                params, state, m = step(params, state,
+                                        {"tokens": toks, "labels": labs})
+                plain.append(float(m["loss"]))
+            want.append((float(jl), T.flatten_with_paths(
+                jax.tree.map(np.asarray, jg)), plain))
+        with jax.disable_jit():
+            for name, (jcfg, jp, toks) in prompts.items():
+                lg, cache = M.prefill(jp, jcfg, toks, PREFILL_S)
+                want_prefill[name] = (np.asarray(lg), T.flatten_with_paths(
+                    jax.tree.map(np.asarray, cache)))
+        outs = [p.communicate(timeout=300) for p in ranks]
     finally:
         for p in ranks:
             p.kill()
     for p, (_, err) in zip(ranks, outs):
         assert p.returncode == 0, err[-3000:]
-    return dict(np.load(tmp / "torch.npz")), want
+    return dict(np.load(tmp / "torch.npz")), want, want_prefill, feed["pad:x"]
 
 
 @pytest.mark.parametrize("i", range(len(POD_CASES)),
@@ -442,7 +519,7 @@ def test_pod_loss_and_every_gradient_match_jax_on_2x4(pod_runs, i):
     placed per ``param_specs`` on 8 gloo ranks (2 x 4), gathered, against
     ``jax.value_and_grad`` on the same numpy params and batch: atol
     1e-5·max(1, max|g|) per leaf, as tests/test_torch_training.py."""
-    got, want = pod_runs
+    got, want, _, _ = pod_runs
     jloss, jg, _ = want[i]
     assert float(got[f"{i}:loss"]) == pytest.approx(jloss, abs=1e-5)
     assert sorted(k for k in got if k.startswith(f"{i}:g:")) == sorted(
@@ -459,9 +536,42 @@ def test_pod_train_steps_match_plain_steps_on_2x4(pod_runs, i):
     """POD_STEPS AdamW steps on the sharded params (DTensor updates of the
     sharded optimizer state) give the plain train_step's losses within
     1e-5."""
-    got, want = pod_runs
+    got, want, _, _ = pod_runs
     plain = want[i][2]
     for s in range(POD_STEPS):
         assert abs(float(got[f"{i}:step{s}"]) - plain[s]) < 1e-5, (
             s, [float(got[f"{i}:step{t}"]) for t in range(POD_STEPS)],
             plain)
+
+
+@pytest.mark.parametrize("name", PREFILL_CASES)
+def test_sharded_prefill_matches_jax_on_2x4(pod_runs, name):
+    """The prefill step (``launch.steps.build_prefill_step``) of a reduced
+    config with params placed per ``param_specs`` and the cache per
+    ``cache_specs`` on 8 gloo ranks (2 x 4), a prompt of PREFILL_S tokens:
+    the last-token logits and every cache tensor (``h``, ``conv``, ``k``,
+    ``v``), gathered, within 1e-5 of JAX's ``prefill`` (op by op) on the
+    same numpy params and prompt.  ":heads5" is reduced hymba with
+    ``num_heads=5, num_kv_heads=5`` (``_CONFIG_SRC``)."""
+    got, _, want, _ = pod_runs
+    logits, cache = want[name]
+    np.testing.assert_allclose(got[f"{name}:logits"], logits, rtol=0,
+                               atol=1e-5)
+    assert sorted(k for k in got if k.startswith(f"{name}:c:")) == sorted(
+        f"{name}:c:{p}" for p, _ in cache)
+    for path, w in cache:
+        np.testing.assert_allclose(got[f"{name}:c:{path}"], w, rtol=0,
+                                   atol=1e-5, err_msg=path)
+
+
+@pytest.mark.parametrize("i", range(len(PAD_CASES)),
+                         ids=[f"data{d}-model{m}" for d, m in PAD_CASES])
+def test_pad_matches_f_pad_on_2x4(pod_runs, i):
+    """``parallel.collectives.pad`` of a DTensor placed per PAD_CASES on 8
+    gloo ranks (2 x 4), dim 1 padded (3, 1) with 0.5: the gathered result
+    equals ``F.pad`` of the whole tensor, and the gradient of the sum of
+    its squares is 2x, exactly."""
+    got, _, _, x = pod_runs
+    want = np.pad(x, ((0, 0), (3, 1), (0, 0)), constant_values=0.5)
+    np.testing.assert_array_equal(got[f"pad{i}"], want)
+    np.testing.assert_array_equal(got[f"pad{i}:grad"], 2 * x)
