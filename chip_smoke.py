@@ -113,13 +113,20 @@ Phases, one JSON line each; any failed phase exits non-zero:
    reported;
 10. ``brownout:qwen3``: a second system on the same host trees, one cell,
    ``combine="weighted"``, member 0 slowed by a repeating ``slow`` fault,
-   an admission budget of one burst's bytes and a ``LiveBench`` attached
-   (``set_profiler``), warmed by one burst.  With the next burst in
-   flight an HTTP request is refused with 429 and a ``Retry-After`` from
-   ``retry_after_s``; with the ``BrownoutController`` running the burst
-   after it is demoted in flight: those requests complete with quality
-   under 1, their forgiven rows held to the int8 member's plain forward
-   alone and the others to the full combine;
+   and an admission budget of one burst's bytes; three drills on it.  In
+   the first, a fresh ``LiveBench`` (``set_profiler``), warmed by one
+   burst, prices the tier table, and with the next burst in flight an
+   HTTP request is refused with 429 and a ``Retry-After`` from
+   ``retry_after_s``; the second and third keep member 1 and member 0
+   alone.  In each, with a fresh ``BrownoutController`` running, the
+   burst after it is demoted in flight: those requests complete with
+   quality under 1, each request keeps a tier of the controller (the
+   measured costs' tier keeps the member of least cost per weight), and
+   each row is held to the plain combine of the members that served it
+   (planned at admission, less the member demoted where its weight was
+   forgiven), renormalized as the accumulator does.  Each drill reports
+   its tiers, the member costs, each request's members and forgiven
+   rows, and the true max |Y - Y_ref|; a miss prints ``demotion_report``;
 11. ``sim:qwen3``: a third system on the host trees, one cell, [[16, 8]],
    ``combine="pallas"``, a ``LiveBench`` attached and warmed by one burst;
    the offered trace of the next 25 bursts of 8 requests of 8 rows (200
@@ -1137,13 +1144,14 @@ def record_batches(worker, log: list, routing=None):
 
 
 def combined_reference(torch, kq, cfgs, workers, fe, X, batches,
-                       use_kernel: bool, routing=None):
+                       use_kernel: bool, routing=None, unquantized=None):
     """Each member's forward on the worker's own parameters over
     ``batches[m]`` (token tensors whose rows are rows of ``X``, zero rows
     being padding), the int8 member's logits quantized per row as the
     server does: returns each member's logits for the rows of ``X``, in
     order, and the int8 member's row scales.  ``routing`` (an open
-    ``RoutingLog``) is told which member runs."""
+    ``RoutingLog``) is told which member runs; a list ``unquantized``
+    receives the int8 member's logits before that quantization."""
     from repro_torch.models.transformer import hidden, logits_from_hidden
     logits, scales = [], None
     for i, (cfg, w) in enumerate(zip(cfgs, workers)):
@@ -1161,6 +1169,8 @@ def combined_reference(torch, kq, cfgs, workers, fe, X, batches,
                     rows[key.tobytes()] = lg[j]
         lg = torch.stack([rows[r.tobytes()] for r in X])
         if i == 1:
+            if unquantized is not None:
+                unquantized.append(lg.cpu().numpy())
             q, s = kq.quantize_symmetric(lg, axis=-1)
             lg = kq.dequantize(q, s)
             scales = s[:, 0].cpu().numpy()
@@ -1181,7 +1191,8 @@ def held_to(Y, ref_logits, scales, weights) -> dict:
     atol = 1e-4 * max(1.0, float(np.abs(Y_ref).max()))
     diff = Y - Y_ref
     step = (weights[1] * scales)[:, None]
-    k = np.rint(diff / step)
+    # no int8 member in the combine: no step to flip by
+    k = np.rint(diff / step) if weights[1] else np.zeros_like(diff)
     resid = np.abs(diff - k * step)
     bad = (resid > atol) | (np.abs(k) > 1)
     off = bad.any(axis=1)
@@ -2018,14 +2029,24 @@ def served_checks(name: str, Y, rows, ref, what: str) -> dict:
     weights), as the pair phase does; fails on any row off."""
     logits, scales, weights = ref
     c = held_to(Y, [lg[rows] for lg in logits], scales[rows], weights)
-    if c["rows_off"]:
-        fail(f"{name}: {what}: {c['bad_elements']} elements in rows "
-             f"{c['rows_off'][:20]} off by more than atol {c['atol']:.3g} "
-             f"from a whole int8 step, max residual {c['max_residual']:.3g}")
-    if c["int8_flips"] > MAX_FLIP_SHARE * Y.size:
-        fail(f"{name}: {what}: {c['int8_flips']} int8 code flips, over "
-             f"{MAX_FLIP_SHARE:.0%} of {Y.size} elements")
+    miss = served_miss(c, Y.size, f"{name}: {what}")
+    if miss is not None:
+        fail(miss)
     return {k: v for k, v in c.items() if k != "row_residual"}
+
+
+def served_miss(c, size: int, what: str):
+    """``served_checks``' verdict on ``held_to``'s result ``c`` for
+    ``size`` elements: None, or what missed."""
+    if c["rows_off"]:
+        return (f"{what}: {c['bad_elements']} elements in rows "
+                f"{c['rows_off'][:20]} off by more than atol "
+                f"{c['atol']:.3g} from a whole int8 step, max residual "
+                f"{c['max_residual']:.3g}")
+    if c["int8_flips"] > MAX_FLIP_SHARE * size:
+        return (f"{what}: {c['int8_flips']} int8 code flips, over "
+                f"{MAX_FLIP_SHARE:.0%} of {size} elements")
+    return None
 
 
 def launches_hold(name: str, cfgs, batches, rows: int, launches, plain,
@@ -2097,57 +2118,55 @@ def supervision_report(torch, system, workers, dev) -> dict:
         "device_gb_reserved": torch.cuda.memory_reserved(dev) / 1e9}
 
 
-def demotion_report(Y, rows, logits, served, stats) -> dict:
-    """For demoted rows that missed the int8 member's reference: each
-    request's quality, members and forgiven rows, the controller's stats,
-    and for the first rows the reference row nearest to each (a row
-    served out of place shows here) and the least-squares fit of the row
-    as a·P1 + b·P0 (a mix of the members shows here)."""
+def control_inputs(seed: int):
+    """``control:qwen3``'s pair and traffic: qwen3-1.7b at full width
+    (fp32) and at ``PAIRS[0]``'s int8 layers, trees made on the host, and
+    the token rows of one burst.  Returns (cfgs, params, X)."""
     import numpy as np
-    P0, P1 = logits
-    fits = []
-    for i in range(min(4, len(rows))):
-        A = np.stack([P1[rows[i]], P0[rows[i]]], 1).astype(np.float64)
-        (a, b), *_ = np.linalg.lstsq(A, Y[i].astype(np.float64), rcond=None)
-        near = np.abs(P1[rows] - Y[i]).max(axis=1)
-        fits.append({"row": int(rows[i]), "a_P1": a, "b_P0": b,
-                     "nearest_ref_row": int(rows[int(near.argmin())]),
-                     "nearest_max_abs": float(near.min())})
-    return {"requests": [{"quality": q, "members": m,
-                          "forgiven_rows": None if w is None
-                          else int((w > 0).sum())} for q, m, w in served],
-            "brownout": stats, "rows": fits}
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    name = "qwen3-1.7b"
+    cfgs = [get_config(name), cut(get_config(name), PAIRS[0][2])]
+    params = [init_params(cfgs[0], seed, "cpu"),
+              init_params(cfgs[1], seed + 1, "cpu")]
+    X = np.random.default_rng(seed + 17).integers(
+        0, cfgs[0].vocab_size, (CONTROL_REQ * CONTROL_ROWS, CONTROL_SEQ)
+    ).astype(np.int32)
+    return cfgs, params, X
+
+
+def control_reference(torch, cfgs, workers, X, weights):
+    """The pair phase's plain reference for the rows of ``X`` on the
+    served workers' own trees (``combined_reference`` in blocks of 16, no
+    kernel): returns ((logits, the int8 member's row scales, weights),
+    the int8 member's logits before the output quantization)."""
+    from repro_torch.kernels import quant as kq
+    raw1 = []
+    with torch.no_grad():
+        tok = torch.from_numpy(X).to(workers[0].device.torch_device)
+        blocks = [tok[lo:lo + 16] for lo in range(0, len(X), 16)]
+        ref = (*combined_reference(torch, kq, cfgs, workers, None, X,
+                                   [blocks, blocks], use_kernel=False,
+                                   unquantized=raw1), weights)
+    return ref, raw1[0]
 
 
 def phase_control(torch, seed: int, smi: str) -> dict:
     """``control:qwen3`` then ``brownout:qwen3`` (see the module
     docstring).  Returns the kernel launches of both served runs."""
     import numpy as np
-    from repro_torch.configs import get_config
-    from repro_torch.core import AllocationMatrix, cuda_cells, cuda_devices
+    from repro_torch.core import AllocationMatrix, cuda_cells
     from repro_torch.kernels import ops
-    from repro_torch.kernels import quant as kq
-    from repro_torch.models import init_params
     from repro_torch.serving import InferenceSystem
-    from repro_torch.serving.admission import AdmissionBudget
-    from repro_torch.serving.control import (BrownoutController, LiveBench,
-                                             ReconfigController)
+    from repro_torch.serving.control import ReconfigController
     from repro_torch.serving.faults import FaultPlan, FaultSpec
-    from repro_torch.serving.segments import PredictOptions
-    from repro_torch.serving.server import _header_s
     from repro_torch.serving.server import serve as http_serve
 
-    name = "qwen3-1.7b"
     dev = torch.device("cuda", 0)
-    cfg0, cfg1 = get_config(name), cut(get_config(name), PAIRS[0][2])
-    cfgs, names = [cfg0, cfg1], [cfg0.name, cfg1.name]
     t0 = time.perf_counter()
-    params = [init_params(cfg0, seed, "cpu"),
-              init_params(cfg1, seed + 1, "cpu")]
+    cfgs, params, X = control_inputs(seed)
     t_init = time.perf_counter() - t0
-    X = np.random.default_rng(seed + 17).integers(
-        0, cfg0.vocab_size, (CONTROL_REQ * CONTROL_ROWS, CONTROL_SEQ)
-    ).astype(np.int32)
+    names = [c.name for c in cfgs]
     all_rows = np.arange(len(X))
     gc.collect()
     torch.cuda.synchronize(dev)
@@ -2255,13 +2274,7 @@ def phase_control(torch, seed: int, smi: str) -> dict:
             k: t * math.ceil(CONTROL_SEG / int(k.rsplit("|b", 1)[1]))
             for k, t in live["latency_ewma_s"].items()}
         workers = [system.instances(0)[0], system.instances(1)[0]]
-        with torch.no_grad():             # the pair phase's reference
-            tok = torch.from_numpy(X).to(workers[0].device.torch_device)
-            blocks = [tok[lo:lo + 16] for lo in range(0, len(X), 16)]
-            ref = (*combined_reference(torch, kq, cfgs, workers, None, X,
-                                       [blocks, blocks], use_kernel=False),
-                   weights)
-            del tok, blocks
+        ref, raw1 = control_reference(torch, cfgs, workers, X, weights)
     finally:
         httpd.shutdown()
         batcher.stop()
@@ -2343,26 +2356,79 @@ def phase_control(torch, seed: int, smi: str) -> dict:
     total = dict(launches)
 
     # ---- B. brownout:qwen3 -------------------------------------------------
+    for k, v in phase_brownout(torch, cfgs, params, X, ref, raw1,
+                               smi).items():
+        total[k] = total.get(k, 0) + v
+
+    # ---- C. sim:qwen3 ------------------------------------------------------
+    for k, v in phase_sim(torch, cfgs, params, X, all_rows, ref,
+                          smi).items():
+        total[k] = total.get(k, 0) + v
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+# brownout:qwen3's drills on its one system: the tier table the measured
+# costs name, then each member alone (the measured costs may name either,
+# PERF.md), so every run holds rows served by either member alone
+BROWNOUT_TIERS = (None, ((0, 1), (1,)), ((0, 1), (0,)))
+DRILL_COUNTERS = ("requests_demoted", "members_demoted", "rows_demoted",
+                  "brownout_planned", "h2d_staged")
+
+
+def brownout_system(torch, cfgs, params, X, stall_s: float = SLOW_CHUNK_S):
+    """``brownout:qwen3``'s system: one cell, [[16, 8]], ``combine=
+    "weighted"``, member 0 stalled ``stall_s`` a chunk by a repeating
+    ``slow`` fault, an admission budget of one burst's bytes, and an HTTP
+    front door on port 0.  Returns (system, the slow fault's spec (its
+    ``stall_s`` may be changed between drills), the budget, the HTTP
+    server, its batcher, its URL)."""
+    import numpy as np
+    from repro_torch.core import AllocationMatrix, cuda_devices
+    from repro_torch.serving import InferenceSystem
+    from repro_torch.serving.admission import AdmissionBudget
+    from repro_torch.serving.faults import FaultPlan, FaultSpec
+    from repro_torch.serving.server import serve as http_serve
     budget = AdmissionBudget(max_bytes=len(X) * CONTROL_SEQ * 4)
-    slow = FaultPlan(FaultSpec(stage="predictor", kind="slow",
-                               stall_s=SLOW_CHUNK_S, worker="w0.0"))
+    spec = FaultSpec(stage="predictor", kind="slow", stall_s=stall_s,
+                     worker="w0.0")
     system = InferenceSystem(
-        cfgs, params, AllocationMatrix(cuda_devices()[:1], names,
+        cfgs, params, AllocationMatrix(cuda_devices()[:1],
+                                       [c.name for c in cfgs],
                                        np.array([[16, 8]])),
         combine="weighted", use_kernel=True, max_seq=CONTROL_SEQ,
         segment_size=CONTROL_SEG, member_dtypes=["fp32", "int8"],
-        fault_plan=slow, admission_budget=budget)
+        fault_plan=FaultPlan(spec), admission_budget=budget)
     httpd, batcher = http_serve(system, port=0)
-    url = f"http://127.0.0.1:{httpd.server_address[1]}"
-    try:
-        torch.cuda.synchronize()
-        ops.reset_counts()
-        # a burst at the full tier warms the live bench that prices the
-        # drain estimate behind Retry-After
+    return (system, spec, budget, httpd, batcher,
+            f"http://127.0.0.1:{httpd.server_address[1]}")
+
+
+def brownout_drill(torch, system, cfgs, X, url: str, *, tiers=None,
+                   refuse: bool = False, trace: bool = False) -> dict:
+    """One drill on ``brownout_system``'s system.  With ``tiers`` None, a
+    fresh ``LiveBench`` warmed by a burst at the full tier prices the tier
+    table; with ``refuse``, the next burst is in flight while an HTTP
+    request over the admission budget is refused (429 and Retry-After);
+    then a fresh ``BrownoutController`` (on ``tiers`` where given) demotes
+    the burst after it in flight.  The controller is stopped and detached
+    after it, so the next drill starts at level 0.  With ``trace``, the
+    tracer records which (request, segment, member) units the senders
+    forgave.  Returns what was served: the answers, each request's planned
+    and demoted members and forgiven weight, the counters' growth, the
+    tiers, whether they were given, and the member costs."""
+    import numpy as np
+    from repro_torch.serving.control import BrownoutController, LiveBench
+    before = system.serving_counters()
+    out = {"Y_warm": None, "Y_full": None, "refused": None}
+    if tiers is None:
         system.set_profiler(LiveBench(cfgs, seq=CONTROL_SEQ))
-        Y_warm, _, _ = serve(system, X, CONTROL_REQ, CONTROL_ROWS)
-        # the budget is one burst's bytes: with a burst in flight, an HTTP
-        # request is refused with 429 and a Retry-After
+        out["Y_warm"], _, _ = serve(system, X, CONTROL_REQ, CONTROL_ROWS)
+    if refuse:
+        # the budget is one burst's bytes: with a burst in flight, an
+        # HTTP request is refused with 429 and a Retry-After
         handles = [system.predict_async(
             X[i * CONTROL_ROWS:(i + 1) * CONTROL_ROWS])
             for i in range(CONTROL_REQ)]
@@ -2375,73 +2441,293 @@ def phase_control(torch, seed: int, smi: str) -> dict:
             fail("brownout:qwen3: the admission budget admitted a request "
                  "over it")
         except urllib.error.HTTPError as e:
-            refused = {"code": e.code, "retry_after": e.headers.get(
+            out["refused"] = {"code": e.code, "retry_after": e.headers.get(
                 "Retry-After"), "body": json.loads(e.read())}
-        drain_after = system.retry_after_s()
+        out["retry_after_s_after"] = system.retry_after_s()
         t0 = time.perf_counter()
-        Y_full = np.concatenate([h.result(600.0) for h in handles])
-        drained_in = time.perf_counter() - t0
-        # the brownout drill: member 0 runs slow; the controller's level
-        # rises and demotes the burst in flight to the int8 member
-        ctl = BrownoutController(system, depth_ref=1.0).start()
+        out["Y_full"] = np.concatenate([h.result(600.0) for h in handles])
+        out["burst_done_after_s"] = time.perf_counter() - t0
+    # the drill: member 0 runs slow; the controller's level rises and
+    # demotes the burst in flight to the tier's members
+    ctl = BrownoutController(system, depth_ref=1.0, tiers=tiers)
+    costs = ctl.member_costs()
+    if trace:
+        system.tracer.clear()
+        system.tracer.enabled = True
+    try:
+        ctl.start()
         handles = [system.predict_async(
             X[i * CONTROL_ROWS:(i + 1) * CONTROL_ROWS])
             for i in range(CONTROL_REQ)]
         Ys = [h.result(600.0) for h in handles]
-        stats = ctl.stats()
+    finally:
+        ctl.stop()
+        system.brownout = None
+        system.tracer.enabled = False
+    by_sender = None
+    if trace:
+        by_sender = set()
+        for w in system.workers:
+            for ev in system.tracer.ring(f"{w.worker_id}/sender").snapshot():
+                if ev[1] == "forgive_demoted":
+                    by_sender.add((ev[4], ev[5], w.model_idx))
+    after = system.serving_counters()
+    return {**out, "Ys": Ys, "rows": CONTROL_ROWS,
+            "served": [served_record(h) for h in handles],
+            "by_sender": by_sender, "brownout": ctl.stats(),
+            "tiers_given": tiers is not None, "member_costs": costs,
+            "counters": {k: after.get(k, 0) - before.get(k, 0)
+                         for k in DRILL_COUNTERS}}
+
+
+def served_record(h) -> dict:
+    """What a drill reads of a completed request's handle: its quality,
+    the members it was planned with at admission, those demoted
+    mid-flight, the combine weight forgiven on each row and its
+    segments' row bounds."""
+    return {"rid": h.req.rid, "quality": h.quality,
+            "members": sorted(h.req.members),
+            "demoted": sorted(h.req.demoted), "missing": h._missing_w,
+            "bounds": [h.req.bounds(s) for s in range(h.req.num_segments())]}
+
+
+def drill_groups(served, rows: int) -> dict:
+    """Which members served each row of a drill's burst (``rows`` rows a
+    request, in order): the members a request was planned with at
+    admission, less those demoted mid-flight on the rows whose combine
+    weight was forgiven.  Returns {members: [row]}."""
+    groups = {}
+    for i, s in enumerate(served):
+        full = tuple(s["members"])
+        cut = tuple(m for m in full if m not in s["demoted"])
+        missing = s["missing"]
+        for j in range(rows):
+            forgiven = missing is not None and missing[j] > 0
+            groups.setdefault(cut if forgiven else full, []).append(
+                i * rows + j)
+    return groups
+
+
+GROUP_NAMES = {(0, 1): "rows_full", (1,): "rows_int8_alone",
+               (0,): "rows_fp32_alone"}
+
+
+def group_weights(weights, members) -> list:
+    """The combine weights of ``members`` renormalized over them, as the
+    accumulator renormalizes a row over the members that reported."""
+    total = sum(weights[m] for m in members)
+    return [weights[m] / total if m in members else 0.0
+            for m in range(len(weights))]
+
+
+def tier_miss(run, weights):
+    """Whether a drill demoted to its controller's tier: every request
+    planned at admission with fewer members, and every request demoted
+    mid-flight, kept a tier below the full one; the deepest tier served
+    some rows alone; and, where the tiers were priced from the measured
+    costs, the deepest tier keeps the member with the least cost per
+    combine weight.  Returns None, or what missed."""
+    tiers = [tuple(t) for t in run["brownout"]["tiers"]]
+    for s in run["served"]:
+        full = tuple(s["members"])
+        cut = tuple(m for m in full if m not in s["demoted"])
+        for kept in {full, cut} - {tiers[0]}:
+            if kept not in tiers[1:]:
+                return (f"request {s['rid']} kept members {list(kept)}, "
+                        f"not a tier of {tiers}")
+    if not drill_groups(run["served"], run["rows"]).get(tiers[-1]):
+        return f"no row was served by the tier {list(tiers[-1])} alone"
+    if not run["tiers_given"]:
+        per_weight = [c / w for c, w in zip(run["member_costs"], weights)]
+        if any(per_weight[k] > min(per_weight) for k in tiers[-1]):
+            return (f"the tier {list(tiers[-1])} does not keep the member "
+                    f"of least cost per weight {per_weight}")
+    return None
+
+
+def drill_verdict(run, ref, raw1) -> dict:
+    """Hold a drill's answers to the plain reference ``ref`` (as
+    ``served_checks`` does, without failing): the warm and full bursts to
+    the full combine, each row of the drilled burst to the combine of the
+    members that served it (``drill_groups``), and the members each
+    request kept to the controller's tiers (``tier_miss``).  Returns the
+    verdict, each request's classification, the rows and true max |Y -
+    Y_ref| of each group, and on a miss the ``demotion_report``."""
+    import numpy as np
+    logits, scales, weights = ref
+    Y = np.concatenate(run["Ys"])
+    checks, miss = {}, tier_miss(run, weights)
+    for name, got in (("burst_warm", run["Y_warm"]),
+                      ("burst_full", run["Y_full"])):
+        if got is None:
+            continue
+        c = held_to(got, logits, scales, weights)
+        checks[name] = c
+        miss = miss or served_miss(c, got.size, name)
+    groups = drill_groups(run["served"], run["rows"])
+    off = {}
+    for who, rows in sorted(groups.items()):
+        rows = np.array(rows)
+        c = held_to(Y[rows], [lg[rows] for lg in logits],
+                    scales[rows], group_weights(weights, who))
+        name = GROUP_NAMES[who]
+        checks[name] = c
+        m = served_miss(c, Y[rows].size, name)
+        if m:
+            miss = miss or m
+            off[who] = rows[c["rows_off"]]
+    out = {"ok": miss is None, "miss": miss,
+           "requests": drill_requests(run),
+           "groups": {GROUP_NAMES[k]: len(v) for k, v in groups.items()},
+           "max_abs_err": {k: c["max_abs_err"] for k, c in checks.items()},
+           "checks": {k: {f: v for f, v in c.items() if f != "row_residual"}
+                      for k, c in checks.items()}}
+    if miss is not None:
+        out["report"] = demotion_report(run, Y, off, ref, raw1)
+    return out
+
+
+def forgiving_stage(s: dict, row: int, by_sender):
+    """Where a request's row lost its demoted member: at admission (the
+    request was planned without it), a sender (a ``forgive_demoted``
+    instant for its segment) or the batcher (forgiven before packing);
+    "in flight" where the drill was not traced (``by_sender`` None); None
+    for a row every member served."""
+    if s["missing"] is None or s["missing"][row] <= 0:
+        return "admission" if len(s["members"]) < 2 else None
+    if by_sender is None:
+        return "in flight"
+    seg = next(k for k, (lo, hi) in enumerate(s["bounds"]) if lo <= row < hi)
+    return "sender" if any((s["rid"], seg, m) in by_sender
+                           for m in s["demoted"]) else "batcher"
+
+
+def drill_requests(run) -> list:
+    """Each request of the drilled burst: tier-planned at admission or
+    demoted mid-flight, its quality, its members (planned, demoted) and
+    its forgiven rows by the stage that forgave them."""
+    out = []
+    for s in run["served"]:
+        stages = {}
+        for j in range(run["rows"]):
+            st = forgiving_stage(s, j, run["by_sender"])
+            if st is not None:
+                stages[st] = stages.get(st, 0) + 1
+        out.append({"rid": s["rid"], "planned": len(s["members"]) < 2,
+                    "demoted_midflight": bool(s["demoted"]),
+                    "quality": s["quality"], "members": s["members"],
+                    "demoted": s["demoted"],
+                    "forgiven_rows": None if s["missing"] is None
+                    else int((s["missing"] > 0).sum()),
+                    "forgiven_by": stages})
+    return out
+
+
+def demotion_report(run, Y, off, ref, raw1) -> dict:
+    """For drilled rows that missed their reference (``off``: members ->
+    rows off): the controller's tiers, the member costs they were priced
+    from and the counters, and for the first rows of each group: the true
+    max |Y - Y_ref| (not the residual off a whole int8 step), the
+    least-squares fit of the row as a·P1 + b·P0 (a mix of the members, or
+    a row not renormalized, shows here), the nearest row of each member's
+    reference and of the full combine (a row served out of place shows
+    here), the max residual against the int8 member's plain logits before
+    the output quantization, and the stage that forgave it."""
+    import numpy as np
+    (P0, P1), _, weights = ref
+    full = weights[0] * P0 + weights[1] * P1
+    rows = []
+    for who, bad in off.items():
+        w = group_weights(weights, who)
+        for r in bad[:4]:
+            i, j = divmod(int(r), run["rows"])
+            y = Y[r].astype(np.float64)
+            A = np.stack([P1[r], P0[r]], 1).astype(np.float64)
+            (a, b), *_ = np.linalg.lstsq(A, y, rcond=None)
+            near = {}
+            for name, P in (("P0", P0), ("P1", P1), ("full", full)):
+                d = np.abs(P - Y[r]).max(axis=1)
+                near[name] = [int(d.argmin()), float(d.min())]
+            rows.append({
+                "row": int(r), "members": list(who),
+                "true_max_abs": float(np.abs(
+                    Y[r] - (w[0] * P0[r] + w[1] * P1[r])).max()),
+                "a_P1": float(a), "b_P0": float(b), "nearest": near,
+                "max_abs_vs_unquantized_P1": float(
+                    np.abs(Y[r] - raw1[r]).max()),
+                "forgiven_by": forgiving_stage(run["served"][i], j,
+                                               run["by_sender"])})
+    return {"tiers": run["brownout"]["tiers"],
+            "level": run["brownout"]["level"],
+            "member_costs": run["member_costs"],
+            "counters": run["counters"], "rows": rows}
+
+
+def drill_line(run, verdict) -> dict:
+    """A drill's JSON record: its verdict and classification, the true
+    max |Y - Y_ref| by group, the controller's tiers and the member costs
+    they were priced from, the counters' growth, and the report on a
+    miss."""
+    line = {k: verdict[k] for k in ("ok", "miss", "requests", "groups",
+                                    "max_abs_err")}
+    line.update({"tiers": run["brownout"]["tiers"],
+                 "tiers_given": run["tiers_given"],
+                 "level": run["brownout"]["level"],
+                 "member_costs": run["member_costs"],
+                 "counters": run["counters"]})
+    if "report" in verdict:
+        line["report"] = verdict["report"]
+    return line
+
+
+def phase_brownout(torch, cfgs, params, X, ref, raw1, smi: str) -> dict:
+    """``brownout:qwen3`` (see the module docstring): one drill for each
+    of ``BROWNOUT_TIERS`` on the one system ``brownout_system`` builds,
+    each held to the plain reference ``ref`` of ``control:qwen3``
+    (``raw1``: the int8 member's logits before the output quantization,
+    for the miss report).  Any miss fails the phase.  Returns the kernel
+    launches of the served runs."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.server import _header_s
+    system, _, budget, httpd, batcher, url = brownout_system(
+        torch, cfgs, params, X)
+    runs = []
+    try:
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        for d, tiers in enumerate(BROWNOUT_TIERS):
+            runs.append(brownout_drill(torch, system, cfgs, X, url,
+                                       tiers=tiers, refuse=d == 0))
         launches = ops.kernel_launches()
         plain = ops.plain_calls()
-        counters = system.serving_counters()
-        served = [(h.quality, list(h.req.members), h._missing_w)
-                  for h in handles]
     finally:
         httpd.shutdown()
         batcher.stop()
         system.shutdown()
-    del system, ctl, handles, httpd, batcher
+    del system, httpd, batcher
     gc.collect()
     torch.cuda.empty_cache()
+    refused = runs[0]["refused"]
     ra = refused["body"].get("retry_after_s")
     if refused["code"] != 429 or ra is None or \
             refused["retry_after"] != _header_s(ra):
         fail(f"brownout:qwen3: the refusal was {refused}")
-    demoted = [i for i, (q, _, _) in enumerate(served) if q < 1.0]
-    if not demoted:
-        fail(f"brownout:qwen3: no request was demoted ({stats})")
-    logits, scales, _ = ref
-    checks = {"burst_warm": served_checks("brownout:qwen3", Y_warm, all_rows,
-                                          ref, "warm burst"),
-              "burst_full": served_checks("brownout:qwen3", Y_full, all_rows,
-                                          ref, "full burst")}
-    # each row is the full combine or, where member 0 was forgiven, the
-    # int8 member's alone (the accumulator renormalizes over who reported)
-    full_rows, alone_rows, Y_full_rows, Y_alone = [], [], [], []
-    for i, (y, (q, members, missing)) in enumerate(zip(Ys, served)):
-        rows = all_rows[i * CONTROL_ROWS:(i + 1) * CONTROL_ROWS]
-        alone = np.ones(len(rows), bool) if members == [1] else (
-            np.zeros(len(rows), bool) if missing is None else missing > 0)
-        full_rows += list(rows[~alone])
-        Y_full_rows.append(y[~alone])
-        alone_rows += list(rows[alone])
-        Y_alone.append(y[alone])
-    if full_rows:
-        checks["rows_full"] = served_checks(
-            "brownout:qwen3", np.concatenate(Y_full_rows),
-            np.array(full_rows), ref, "full rows")
-    try:
-        checks["rows_int8_alone"] = served_checks(
-            "brownout:qwen3", np.concatenate(Y_alone), np.array(alone_rows),
-            (logits, scales, [0.0, 1.0]), "demoted rows")
-    except SystemExit:
-        print(json.dumps({"brownout:qwen3 demoted rows": demotion_report(
-            np.concatenate(Y_alone), alone_rows, logits, served, stats)},
-            default=str), file=sys.stderr, flush=True)
-        raise
-    minima = launches_hold("brownout:qwen3", cfgs[1:], [8],
-                           3 * len(X), launches, plain,
-                           combine_kernels=False)
+    lines = []
+    for d, run in enumerate(runs):
+        verdict = drill_verdict(run, ref, raw1)
+        if not verdict["ok"]:
+            print(json.dumps({"brownout:qwen3 drill": d, **drill_line(
+                run, verdict)}, default=str), file=sys.stderr, flush=True)
+            fail(f"brownout:qwen3: drill {d}: {verdict['miss']}")
+        lines.append({"drill": d, **drill_line(run, verdict),
+                      "checks": verdict["checks"]})
+    # member 1 serves every row of the warm and full bursts and of the
+    # drill whose tier keeps it
+    minima = launches_hold("brownout:qwen3", cfgs[1:], [8], 3 * len(X),
+                           launches, plain, combine_kernels=False)
     emit({"phase": "brownout:qwen3", "ok": True, "card": smi,
-          "members": names, "member_dtypes": ["fp32", "int8"],
+          "members": [c.name for c in cfgs],
+          "member_dtypes": ["fp32", "int8"],
           "allocation": [[16, 8]], "combine": "weighted",
           "slow_fault": {"stage": "predictor", "stall_s": SLOW_CHUNK_S,
                          "worker": "w0.0"},
@@ -2449,26 +2735,14 @@ def phase_control(torch, seed: int, smi: str) -> dict:
           "refused": {"code": refused["code"],
                       "retry_after_header": refused["retry_after"],
                       "retry_after_s": ra,
-                      "retry_after_s_after": drain_after,
-                      "burst_done_after_s": drained_in},
-          "brownout": stats,
-          "requests_demoted": counters.get("requests_demoted"),
-          "quality": [q for q, _, _ in served],
-          "rows_full": len(full_rows), "rows_int8_alone": len(alone_rows),
-          "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
-          "checks": checks, "launches": launches, "launch_minima": minima,
+                      "retry_after_s_after": runs[0]["retry_after_s_after"],
+                      "burst_done_after_s": runs[0]["burst_done_after_s"]},
+          "drills": lines,
+          "max_abs_err": max(max(ln["max_abs_err"].values())
+                             for ln in lines),
+          "launches": launches, "launch_minima": minima,
           "plain_calls": plain})
-    for k, v in launches.items():
-        total[k] = total.get(k, 0) + v
-
-    # ---- C. sim:qwen3 ------------------------------------------------------
-    for k, v in phase_sim(torch, cfgs, params, X, all_rows, ref,
-                          smi).items():
-        total[k] = total.get(k, 0) + v
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
-    return total
+    return launches
 
 
 def phase_sim(torch, cfgs, params, X, rows, ref, smi: str) -> dict:

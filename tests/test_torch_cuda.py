@@ -599,6 +599,68 @@ def test_staged_buffer_comes_from_the_copy_stream(dev, monkeypatch):
         assert waited_on == compute              # the forward's stream
 
 
+def test_int8_member_alone_after_a_staged_chunk_is_skipped(dev):
+    """The int8 member's ``(q, per-row scale)`` logits behind the device
+    combiner under ``combine="weighted"``, with the fp32 member demoted
+    just after its predictor staged its next chunk on the copy stream:
+    that chunk is skipped (its copy settled, its slot recycled) and the
+    member's rows forgiven.  Every forgiven row is held to the int8
+    member's plain dequantized logits alone, every other row to the full
+    combine, by ``chip_smoke.py``'s ``held_to`` rule (within atol of a
+    whole int8 step, at most 1 % of elements a step off)."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    from repro_torch.configs import ensemble
+    from repro_torch.core import AllocationMatrix, cuda_devices
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import hidden, logits_from_hidden
+    from repro_torch.serving import InferenceSystem
+    cfgs = ensemble("ENS4")[:2]
+    params = [init_params(c, seed=i, device=dev) for i, c in enumerate(cfgs)]
+    X = np.random.default_rng(7).integers(0, 512, (32, 16)).astype(np.int32)
+    with InferenceSystem(cfgs, params, AllocationMatrix(
+            cuda_devices()[:1], [c.name for c in cfgs], np.array([[4, 4]])),
+            max_seq=16, segment_size=8, dispatch_ahead=2,
+            combine="weighted", use_kernel=True,
+            member_dtypes=["fp32", "int8"]) as s:
+        (w0,), (w1,) = s.instances(0), s.instances(1)
+        stage, hold, staged = w0._stage, [], []
+
+        def stage_then_demote(c):
+            out = stage(c)
+            if not staged:
+                staged.append(out)
+                assert s.demote_request(hold[0].req.rid, {1})
+            return out
+
+        # a fresh system's predictor waits with both window tokens: its
+        # first round pops both chunks of the first segment and stages
+        # the second behind the first's forward
+        w0._stage = stage_then_demote
+        hold.append(s.predict_async(X))
+        Y = hold[0].result(120.0)
+        wparams = [w0.params, w1.params]
+        weights = [float(x) for x in s.accumulator.weights]
+    h = hold[0]
+    assert staged and staged[0][2] is not None     # a copy-stream event
+    forgiven = h._missing_w > 0
+    assert forgiven.any() and h.quality < 1.0
+    tok = torch.from_numpy(X).to(dev)
+    with torch.no_grad():
+        lg = [logits_from_hidden(p, c, hidden(p, c, tok)[:, -1])
+              [:, :c.vocab_size] for c, p in zip(cfgs, wparams)]
+    q, sc = kq.quantize_symmetric(lg[1], axis=-1)
+    P = [lg[0].cpu().numpy(), kq.dequantize(q, sc).cpu().numpy()]
+    scales = sc[:, 0].cpu().numpy()
+    for rows, w in ((forgiven, [0.0, 1.0]), (~forgiven, weights)):
+        if rows.any():
+            c = chip_smoke.held_to(Y[rows], [p[rows] for p in P],
+                                   scales[rows], w)
+            assert chip_smoke.served_miss(c, Y[rows].size, "rows") is None
+
+
 @pytest.mark.parametrize("name", ["qwen3-1.7b-reduced", "hymba-1.5b-reduced",
                                   "granite-moe-3b-a800m-reduced",
                                   "llama-3.2-vision-11b-reduced"])
