@@ -173,8 +173,6 @@ class DeviceCombiner:
                 del expected[s]
                 if not expected:
                     del self._expected[req.rid]
-        if flush is not None:
-            self._post(req.rid, s, *flush)
         t1 = time.perf_counter()
         if self.timers is not None:
             self.timers.add("combine", t1 - t0)
@@ -183,12 +181,24 @@ class DeviceCombiner:
             self._tr_ring.append(
                 ("X", "combine", t0, t1 - t0, req.rid,
                  s, m, flush is not None))
+        if flush is not None:
+            self._post(req.rid, s, *flush)
 
     def _post(self, rid: int, s: int, part: _SegPartial, count: int) -> None:
-        """The single device->host transfer per device per segment."""
+        """The single device->host transfer per device per segment, timed
+        as stage ``post``: the copy is queued on the compute stream, so it
+        also waits for every forward committed before it."""
+        t0 = time.perf_counter()
         acc = part.acc
         if isinstance(acc, torch.Tensor):
             acc = acc.cpu().numpy()
+        t1 = time.perf_counter()
+        if self.timers is not None:
+            self.timers.add("post", t1 - t0)
+        tr = self.tracer
+        if tr is not None and tr.enabled:
+            self._tr_ring.append(("X", "post", t0, t1 - t0, rid, s, count,
+                                  None))
         self.prediction_queue.put(Message(s, None, acc, rid=rid, count=count))
         self.partials_posted += 1
 

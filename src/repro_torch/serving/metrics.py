@@ -1,15 +1,44 @@
 """Per-stage timing counters + serving gauges for the hot path (DESIGN.md §6).
 
 Stages (one wall-clock accumulator each, shared by all threads):
+  ``admission_wait`` per request, from ``predict_async``'s entry to its last
+                     descriptor queued: brownout planning, the admission
+                     budget, the in-flight window, the submit lock and the
+                     striping,
+  ``input_wait``     per (request, segment) descriptor, from the request's
+                     ``t_submit`` to the batcher's pop (tracing on only),
   ``batcher_wait``   time a batcher spends blocked on its input queue,
-  ``batch_fill``     copying request rows into coalesced batch slots,
+  ``slot_wait``      per blocking wait of the batcher for a free ring slot
+                     (slots recycle once every chunk of theirs materialized),
+  ``batch_fill``     copying request rows into coalesced batch slots and
+                     packing them, the ring-slot waits left out,
   ``dispatch_wait.high`` / ``dispatch_wait.normal``
                      per-class time a chunk waits in the priority dispatch
                      queue between batcher and predictor (the preemption
                      lever: high should stay near zero under bulk load),
-  ``predict``        jitted-step dispatch (async — excludes device time),
-  ``transfer``       device sync + device->host fetch in the sender,
-  ``combine``        device-partial / accumulator fold time.
+  ``predict``        the host's enqueue of a dispatch round's forwards
+                     (asynchronous on the card: no device time in it; it
+                     blocks once the launch queue is full),
+  ``transfer``       the sender's sync, scatter and device->host fetch,
+                     which includes the on-device fold and post below,
+  ``combine``        device-partial / accumulator fold time,
+  ``post``           per posted device partial, its device->host copy: it
+                     is queued on the compute stream, so it waits for every
+                     forward committed before it,
+  ``accumulate``     the accumulator's fold of a message into ``Y``.
+
+While tracing is on, the sender also reads each chunk's forward on the
+card (CUDA timing events; nothing on the CPU, where a forward runs inside
+its own enqueue):
+  ``forward_device.m<member>.b<bucket>``
+                     device seconds from a timing event before the forward
+                     to one after it on the compute stream, per member and
+                     compiled bucket: the forward's residency, which holds
+                     any other member's kernels enqueued meanwhile,
+  ``device_queue.m<member>``
+                     per chunk, from the start of its enqueue to the start
+                     of its forward on the device: its wait behind earlier
+                     work on the compute stream.
 
 Counters (monotonic sums) instrument the coalescing scheduler:
   ``rows_valid``       request rows dispatched to the device,
@@ -18,7 +47,10 @@ Counters (monotonic sums) instrument the coalescing scheduler:
                        (or instead of) device time,
   ``batches``          compiled-batch dispatches,
   ``spans``            (request, segment, row-range) spans packed into
-                       batches — spans/batches is the coalescing factor.
+                       batches — spans/batches is the coalescing factor,
+  ``forward_rows.m<member>.b<bucket>``
+                       valid rows of the forwards timed on the device
+                       (tracing on; beside ``forward_device``).
 
 Gauges record last/max/mean of a sampled value (e.g.
 ``queue_depth.<worker_id>``, that batcher's input-queue backlog at each
@@ -46,8 +78,6 @@ import threading
 import time
 from collections import defaultdict
 from typing import Dict, List, Optional
-
-LATENCY_WINDOW = 512      # retained for callers; histograms are unbounded
 
 # log-spaced latency bucket upper bounds (seconds): 1e-4 * sqrt(2)^i.
 # 42 finite buckets span 100µs .. ~148s; one overflow bucket above.

@@ -554,7 +554,13 @@ class InferenceSystem:
     # ---- the segment ids broadcaster -----------------------------------------
     def _broadcast(self, X: np.ndarray, members=None,
                    options: Optional[PredictOptions] = None, *,
-                   plan: bool = True) -> RequestHandle:
+                   plan: bool = True,
+                   t_entry: Optional[float] = None) -> RequestHandle:
+        """Admit one request; ``t_entry`` is when its caller asked
+        (``predict_async``'s entry), where its ``admission_wait`` and its
+        ``submit`` span start."""
+        if t_entry is None:
+            t_entry = time.perf_counter()
         opts = options or PredictOptions()
         n, width = X.shape
         if members is None:
@@ -633,7 +639,8 @@ class InferenceSystem:
             handle = self._submit(X, n, width, members, combine, opts,
                                   deadline, tier_quality=tier_quality,
                                   charge=charge,
-                                  keep_buffer=bool(escalate))
+                                  keep_buffer=bool(escalate),
+                                  t_entry=t_entry)
         except BaseException:
             self._inflight.release()      # a failed submit must not leak a slot
             self._credit_admission(charge)   # the request never went live
@@ -666,7 +673,8 @@ class InferenceSystem:
     def _submit(self, X: np.ndarray, n: int, width: int,
                 members: List[int], combine: str, opts: PredictOptions,
                 deadline: Optional[float], *, tier_quality: float = 1.0,
-                charge=None, keep_buffer: bool = False) -> RequestHandle:
+                charge=None, keep_buffer: bool = False,
+                t_entry: float) -> RequestHandle:
         with self._submit_lock:
             if self._shutdown:
                 # the unsynchronized predict_async check can race shutdown()
@@ -721,17 +729,21 @@ class InferenceSystem:
                     comb.begin(req, exp)
             for w, s in plan:
                 w.input_queue.put((req, s), req.priority)
+            # from the caller's entry to the last descriptor queued: tier
+            # planning, the budget, the in-flight window, this lock and the
+            # striping
+            t_queued = time.perf_counter()
+            self.timers.add("admission_wait", t_queued - t_entry)
             # budget ownership transfers to the live request LAST (nothing
             # below here raises): from now on _on_request_complete credits
             # it back exactly once; any earlier exception leaves it unset
             # and _broadcast's except path credits instead
             req.budget_charge = charge
             if self.tracer.enabled:
-                # the admission span: buffer take + striping + enqueue —
-                # the root of the request's timeline (DESIGN.md §13)
+                # the admission span, from the caller's entry: the root of
+                # the request's timeline (DESIGN.md §13)
                 self.tracer.ring("admission").append(
-                    ("X", "submit", req.t_submit,
-                     time.perf_counter() - req.t_submit, rid,
+                    ("X", "submit", t_entry, t_queued - t_entry, rid,
                      {"priority": req.priority, "members": list(members),
                       "rows": n, "quality": tier_quality,
                       "deadline_ms": None if deadline is None else round(
@@ -748,9 +760,11 @@ class InferenceSystem:
         per-request intent (priority / deadline / members / combine /
         streaming — DESIGN.md §7); the ``members`` argument wins over
         ``options.members`` when both are given."""
+        t_entry = time.perf_counter()
         if self._shutdown:
             raise RuntimeError("system is shut down")
-        return self._broadcast(np.asarray(X, np.int32), members, options)
+        return self._broadcast(np.asarray(X, np.int32), members, options,
+                               t_entry=t_entry)
 
     def predict(self, X: np.ndarray, timeout: float = 600.0,
                 members=None,

@@ -2,7 +2,8 @@
 
 A lock-light span layer recording per-request causal timelines at chunk
 granularity: admission → batcher slot-pack → dispatch-queue wait → predict
-→ transfer → combine/accumulate.  Every pipeline stage emits flat event
+→ forward on the device → transfer → combine/post/accumulate.  Every
+pipeline stage emits flat event
 fields into a bounded per-track :class:`FlightRecorder` ring (drop-oldest
 ``deque`` — the emit is one GIL-atomic C call, so the hot path takes no
 lock, retains no GC-tracked object, and pays one attribute check when
@@ -13,8 +14,11 @@ Events reuse timestamps the pipeline already computes (``chunk.t_enq``,
 ``Request.t_submit``, the ``StageTimers.timed`` return value), and the
 per-chunk dispatch-wait record is stored grouped per dispatch round
 ("G" below), so tracing adds one C-level append, not allocation or
-clock calls, per chunk — the ``tracing_overhead`` bench gates the total
-at <= 5%.
+clock calls, per chunk.  The exception is the device timing of each
+traced forward (two timing events, two host readings and one record per
+chunk, ``Worker._record_forward``).  The port's cost of tracing is read
+from its benchmark's traced runs (``servebench/run.py --trace 1``), whose
+rate a change compares with its parent's (PERF.md).
 
 The clock is pluggable: the live system uses ``time.perf_counter``; the
 discrete-event simulator passes ``lambda: loop.now`` so a recorded trace
@@ -65,7 +69,10 @@ __all__ = ["FlightRecorder", "Tracer", "pack_times"]
 # the attached round predict duration / committed-chunk count.  "g" is
 # the single-span variant (sender transfer): a normal (t0, dur) span
 # whose slot ``a`` carries the group's enqueue times purely for request
-# attribution.
+# attribution.  A device ``forward`` span (track ``<worker>/device``) is
+# a "g" record whose slot ``a`` packs its one chunk's ``t_enq`` and whose
+# slot ``c`` packs its host marks: the forward's enqueue start and the
+# return of the sender's sync.
 #
 # Neither grouped form extracts request ids on the hot path.  Request
 # attribution is recovered at export time by JOINING each chunk's
@@ -94,6 +101,7 @@ _SLOT_KEYS = {
     "dropped": ("s",),
     "forgive_demoted": ("s",),
     "combine": ("s", "m", "posted"),
+    "post": ("s", "count"),
     "accumulate": ("s", "rows"),
 }
 
@@ -127,8 +135,10 @@ def _decode(ph, name, t0, dur, rid, a, b, c) -> _Event:
         return ph, name, t0, dur, rid, args
     if ph == "g":
         if isinstance(a, bytes):        # packed enqueue times inline
-            return ph, name, t0, dur, rid, {
-                "t_enq": _struct_for(len(a) // 8).unpack(a), "chunks": b}
+            args = {"t_enq": _struct_for(len(a) // 8).unpack(a), "chunks": b}
+            if c is not None:           # a device span's host marks
+                args["enqueued"], args["synced"] = _struct_for(2).unpack(c)
+            return ph, name, t0, dur, rid, args
         return ph, name, t0, dur, rid, {"t_pop": a, "chunks": b}
     if a is None:
         return ph, name, t0, dur, rid, None

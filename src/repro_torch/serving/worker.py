@@ -80,11 +80,16 @@ priority :class:`~repro_torch.serving.admission.DispatchQueue` as an independent
     per-span forwarding would multiply combiner/accumulator traffic by
     chunks-per-segment;
   * per-stage wall-clock counters (metrics.StageTimers) instrument the
-    batcher wait, batch fill, per-class dispatch-queue wait
-    (``dispatch_wait.high`` / ``dispatch_wait.normal``), predict dispatch,
-    and device sync/transfer; padding counters (``rows_valid`` /
-    ``rows_dispatched``) and the ``queue_depth`` gauge expose coalescing
-    efficiency.
+    batcher wait, the wait for a free ring slot (``slot_wait``), batch
+    fill, per-class dispatch-queue wait (``dispatch_wait.high`` /
+    ``dispatch_wait.normal``), predict dispatch, and device sync/transfer;
+    padding counters (``rows_valid`` / ``rows_dispatched``) and the
+    ``queue_depth`` gauge expose coalescing efficiency.  While tracing is
+    on, each descriptor's wait before the batcher pops it is recorded too
+    (``input_wait``), and on the card each chunk's forward is timed on the
+    device (``forward_device.m<member>.b<bucket>``,
+    ``device_queue.m<member>`` and a ``forward`` span on the
+    ``<worker>/device`` track; see ``_record_forward``).
 
 Request-API admission (DESIGN.md §7): the input queue is a two-level
 :class:`~repro_torch.serving.admission.AdmissionQueue` — high-priority descriptors
@@ -314,6 +319,7 @@ class Worker:
         self._tr_batcher = f"{worker_id}/batcher"
         self._tr_predict = f"{worker_id}/predict"
         self._tr_sender = f"{worker_id}/sender"
+        self._tr_device = f"{worker_id}/device"
         # batcher ring cached once: rings are cleared in place, never
         # replaced, and _flush is too hot for a per-flush locked lookup
         self._tr_batcher_ring = tracer.ring(self._tr_batcher) \
@@ -381,6 +387,12 @@ class Worker:
             self._free_slots.put(i)
         self._alt_pool: Dict[int, List[np.ndarray]] = {}
         self._alt_lock = threading.Lock()
+        # seconds the batcher has waited for free ring slots, so that
+        # ``batch_fill`` leaves the waits out (batcher thread only)
+        self._slot_waited = 0.0
+        # (timing event, perf_counter) taken together after the warm-up:
+        # maps a traced forward's device events onto the host clock
+        self._anchor = None
 
         try:
             if self._fault is not None:
@@ -422,6 +434,10 @@ class Worker:
                 self.predict_fn(self.params, warm, self.frontend)
                 if self._cuda:
                     torch.cuda.synchronize(self._device)
+                    a = torch.cuda.Event(enable_timing=True)
+                    a.record(torch.cuda.current_stream(self._device))
+                    a.synchronize()
+                    self._anchor = (a, time.perf_counter())
             self.prediction_queue.put(Message(seg.READY, model_idx, None))
         except (MemoryError, RuntimeError, ValueError) as e:
             # paper §II.C.2: {-1, None, None} triggers system shutdown.  A
@@ -562,7 +578,8 @@ class Worker:
             else:
                 # backpressure: the wait is on the stages after this one
                 hb = self._hb["batcher"]
-                hb[:] = [_HB_WAIT, time.perf_counter()]
+                t_wait = time.perf_counter()
+                hb[:] = [_HB_WAIT, t_wait]
                 while True:
                     try:
                         slot = self._free_slots.get(timeout=0.002)
@@ -571,7 +588,10 @@ class Worker:
                         if self.input_queue.depth(seg.PRIORITY_HIGH):
                             slot = None
                             break
-                hb[:] = [_HB_ACTIVE, time.perf_counter()]
+                now = time.perf_counter()
+                hb[:] = [_HB_ACTIVE, now]
+                self._slot_waited += now - t_wait
+                self.timers.add("slot_wait", now - t_wait)
                 if slot is None:
                     return None           # high work first; retry after
             if slot is not None:
@@ -704,18 +724,25 @@ class Worker:
                     # quiesce has actually been dispatched (DESIGN.md §8)
                     self._dispatch_q.put(item)
                 continue
-            open_batch = self._admit(item, open_batch)
-            self.timers.timed("batch_fill", t0)
+            waited = self._slot_waited
+            open_batch = self._admit(item, open_batch, t0)
+            # the row copy and packing: the ring-slot waits are slot_wait's
+            self.timers.add("batch_fill", time.perf_counter() - t0 -
+                            (self._slot_waited - waited))
 
-    def _admit(self, item, open_batch: Optional[_OpenBatch]
-               ) -> Optional[_OpenBatch]:
-        """Pack one (request, segment) descriptor, returning the (possibly
-        new / possibly flushed) open batch.  A bulk descriptor's wait for a
-        ring slot is preemptible: when high-priority work lands in the
-        admission queue mid-wait, the high descriptors are admitted first
-        through express side buffers (recursion is one level deep — the
-        express path never blocks), then the bulk wait resumes."""
+    def _admit(self, item, open_batch: Optional[_OpenBatch],
+               t_pop: float) -> Optional[_OpenBatch]:
+        """Pack one (request, segment) descriptor, popped from the input
+        queue at ``t_pop``, returning the (possibly new / possibly flushed)
+        open batch.  A bulk descriptor's wait for a ring slot is
+        preemptible: when high-priority work lands in the admission queue
+        mid-wait, the high descriptors are admitted first through express
+        side buffers (recursion is one level deep — the express path never
+        blocks), then the bulk wait resumes."""
         req, s = item                         # type: Request, int
+        tr = self.tracer
+        if tr is not None and tr.enabled and req.t_submit is not None:
+            self.timers.add("input_wait", t_pop - req.t_submit)
         if req.dropped():
             # expired/cancelled: never pack rows — fail fast instead of
             # occupying ring slots (idempotent across workers/segments)
@@ -765,7 +792,7 @@ class Worker:
                         hitem = self.input_queue.take_high()
                         if hitem is None:
                             break
-                        hot = self._admit(hitem, hot)
+                        hot = self._admit(hitem, hot, time.perf_counter())
                     if hot is not None:       # high work never lingers here
                         self._flush(hot)
                     continue                  # resume the bulk slot wait
@@ -896,6 +923,9 @@ class Worker:
             # staging can run.
             staged = mine = None          # (ChunkDesc, buffer, copy event)
             stage_h2d = not self.fake
+            # traced rounds time each forward on the card (_record_forward)
+            timed = tr is not None and tr.enabled and self._cuda \
+                and not self.fake
 
             def _skippable(c):
                 return c.spans and all(
@@ -926,10 +956,10 @@ class Worker:
                         # ends before the sender may recycle its slot
                         self._settle(mine)
                         mine = None
-                        group.append((chunk, None, None, t0, True))
+                        group.append((chunk, None, None, t0, True, None))
                         continue
                     committed += 1
-                    y = ev = None
+                    y = ev = clock = None
                     nan_out = False
                     if self._fault is not None:
                         nan_out = self._fault.tick(
@@ -952,10 +982,19 @@ class Worker:
                             x = self._upload(chunk)
                         fe = (self.frontend[:chunk.bucket]
                               if self.frontend is not None else None)
+                        if timed:
+                            # the enqueue's start and a timing event before
+                            # the forward; the marker below ends it
+                            t_start = time.perf_counter()
+                            start = torch.cuda.Event(enable_timing=True)
+                            start.record(torch.cuda.current_stream(
+                                self._device))
                         y = self.predict_fn(self.params, x, fe)
                         if self._cuda:        # materialization marker
-                            ev = torch.cuda.Event()
+                            ev = torch.cuda.Event(enable_timing=timed)
                             ev.record(torch.cuda.current_stream(self._device))
+                        if timed:
+                            clock = (t_start, start)
                         if stage_h2d:
                             # overlap the NEXT chunk's upload with this
                             # compute
@@ -966,7 +1005,7 @@ class Worker:
                                     staged = self._stage(nxt)
                                     break
                     mine = None
-                    group.append((chunk, y, ev, t0, False))
+                    group.append((chunk, y, ev, t0, False, clock))
                     hb[:] = [_HB_ACTIVE, time.perf_counter()]   # progress
             finally:
                 # a round always reaches the chunk it staged; a crash
@@ -1035,9 +1074,9 @@ class Worker:
             t0 = time.perf_counter()
             hb[:] = [_HB_ACTIVE, t0]
             profiled = []                  # (bucket, valid) materialized
-            for chunk, y, ev, t_dispatch, skipped in batch:
+            for chunk, y, ev, _t_dispatch, skipped, clock in batch:
                 self._send_chunk(chunk, y, ev, skipped, staging, on_device,
-                                 profiled)
+                                 profiled, clock)
                 hb[:] = [_HB_ACTIVE, time.perf_counter()]   # progress
             now = self.timers.timed("transfer", t0)   # sync+scatter, group
             if tr is not None and tr.enabled:
@@ -1061,14 +1100,49 @@ class Worker:
                     self.profiler.observe(self.model_idx, self.device.key(),
                                           bucket, valid, dt * bucket / total)
 
+    def _record_forward(self, chunk: ChunkDesc, clock: tuple,
+                        end: "torch.cuda.Event") -> None:
+        """A traced chunk's forward on the card, read once its end event
+        (the materialization marker) is reached:
+        its device seconds by member and bucket
+        (``forward_device.m<member>.b<bucket>``) beside its valid rows
+        (counter ``forward_rows.m<member>.b<bucket>``), its wait on the
+        compute stream from the start of its enqueue to the start of its
+        first kernel (``device_queue.m<member>``: the enqueue itself can
+        block on a full launch queue while the forward already runs), and a
+        ``forward`` span on the host clock on the ``<worker>/device`` track.
+        The span's request ids are joined at export through the chunk's
+        ``t_enq``; its host marks (enqueue start, this sync's return) ride
+        along for causality checks.  The device seconds run from the start
+        mark to the end mark on the one compute stream, so they also hold
+        whatever another worker enqueued there meanwhile: with two members'
+        predictors enqueuing at once, the two forwards' kernels interleave.
+        The start event lands on the host clock through the worker's clock
+        anchor (float32 milliseconds from it: a few microseconds' grain a
+        minute on)."""
+        t_synced = time.perf_counter()
+        t_start, start = clock
+        anchor, t_anchor = self._anchor
+        t0 = t_anchor + 1e-3 * anchor.elapsed_time(start)
+        dur = 1e-3 * start.elapsed_time(end)
+        m, b = self.model_idx, chunk.bucket
+        self.timers.add(f"forward_device.m{m}.b{b}", dur)
+        self.timers.inc(f"forward_rows.m{m}.b{b}", chunk.valid)
+        self.timers.add(f"device_queue.m{m}", t0 - t_start)
+        self.tracer.ring(self._tr_device).append(
+            ("g", "forward", t0, dur, None, pack_times((chunk.t_enq,)), 1,
+             pack_times((t_start, t_synced))))
+
     def _send_chunk(self, chunk, y, ev, skipped, staging, on_device,
-                    profiled):
+                    profiled, clock):
         if not skipped:
             if self._fault is not None:
                 self._fault.tick(self.worker_id, "sender")
             if y is not None:
                 if ev is not None:
                     ev.synchronize()       # compute done; outputs on device
+                if clock is not None:
+                    self._record_forward(chunk, clock, ev)
                 if not on_device and not isinstance(y, np.ndarray):
                     y = y.cpu().numpy()    # d->h copy
                 if self.nan_guard and isinstance(y, np.ndarray) \

@@ -661,6 +661,113 @@ def test_int8_member_alone_after_a_staged_chunk_is_skipped(dev):
             assert chip_smoke.served_miss(c, Y[rows].size, "rows") is None
 
 
+def _merged(spans):
+    out = []
+    for lo, hi in sorted(spans):
+        if out and lo <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], hi)
+        else:
+            out.append([lo, hi])
+    return out
+
+
+def _overlap(a, b):
+    """Length of the intersection of two merged interval lists."""
+    i = j = 0
+    total = 0.0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        total += max(0.0, hi - lo)
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def test_traced_forward_spans_cover_the_device_busy_time(dev):
+    """A traced mamba2 pair at full width (4 + 2 layers, fp32 and int8)
+    under the profiler.  Each chunk's ``forward`` span, on the host clock,
+    is placed on the profiler's through a ``record_function`` mark, as
+    ``servebench/harness/devtrace.reduce`` places the benchmark's own
+    spans: the spans cover at least 95 % of the device's busy time, and
+    none starts before its chunk's enqueue start or ends after the
+    sender's sync returned, by more than 0.5 ms."""
+    import dataclasses
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import AllocationMatrix, cuda_devices
+    from repro_torch.models import init_params
+    from repro_torch.serving import InferenceSystem
+    base = get_config("mamba2-1.3b")
+    cfgs = [dataclasses.replace(base, name=f"mamba2.m{i}", num_layers=n)
+            for i, n in enumerate((4, 2))]
+    params = [init_params(c, seed=i, device=dev) for i, c in enumerate(cfgs)]
+    alloc = AllocationMatrix(cuda_devices()[:1], [c.name for c in cfgs],
+                             np.array([[16, 8]]))
+    rng = np.random.default_rng(7)
+    sizes = rng.integers(1, 40, 24)
+    X = rng.integers(0, 50000, (int(sizes.sum()), 256)).astype(np.int32)
+    bounds = np.concatenate([[0], np.cumsum(sizes)])
+    with InferenceSystem(cfgs, params, alloc, max_seq=256, segment_size=32,
+                         combine="pallas", use_kernel=True,
+                         member_dtypes=["fp32", "int8"], tracing=True) as s:
+        s.predict(X[:40])                       # every bucket warm
+        torch.cuda.synchronize()
+        s.tracer.clear()
+        s.timers.reset()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("test.window.start"):
+                t0 = time.perf_counter()
+            hs = [s.predict_async(X[lo:hi])
+                  for lo, hi in zip(bounds[:-1], bounds[1:])]
+            for h in hs:
+                h.result(300.0)
+            torch.cuda.synchronize()
+            with record_function("test.window.end"):
+                pass
+        tracks = s.tracer.tracks()
+        stages, counters = s.stage_timings(), s.serving_counters()
+    for m in (0, 1):                            # every row, each member
+        assert sum(v for k, v in counters.items()
+                   if k.startswith(f"forward_rows.m{m}.")) == len(X)
+    spans = [ev for tid, evs in tracks.items() if tid.endswith("/device")
+             for ev in evs]
+    assert len(spans) == sum(st["count"] for k, st in stages.items()
+                             if k.startswith("forward_device."))
+    # causality on the host clock: (end after the sync returned, start
+    # before the enqueue began)
+    late = [(e[2] + e[3] - e[5]["synced"], e[5]["enqueued"] - e[2])
+            for e in spans]
+    worst = max(max(a, b) for a, b in late)
+    assert worst <= 0.5e-3, worst
+    marks, device = {}, []
+    for e in prof.profiler.kineto_results.events():
+        lo = float(e.start_ns())
+        if e.device_type() == DeviceType.CUDA:
+            device.append((lo, lo + e.duration_ns()))
+        elif e.name() in ("test.window.start", "test.window.end"):
+            marks[e.name()] = lo
+    w0, w1 = marks["test.window.start"], marks["test.window.end"]
+    busy = _merged([(max(lo, w0), min(hi, w1)) for lo, hi in device
+                    if min(hi, w1) > max(lo, w0)])
+    fwd = _merged([(w0 + (e[2] - t0) * 1e9, w0 + (e[2] + e[3] - t0) * 1e9)
+                   for e in spans])
+    busy_ns = sum(hi - lo for lo, hi in busy)
+    covered = _overlap(busy, fwd) / busy_ns
+    summed = sum(e[3] for e in spans) * 1e9
+    union = sum(hi - lo for lo, hi in fwd)
+    print(f"forward spans cover {100 * covered:.3f} % of "
+          f"{busy_ns * 1e-6:.3f} ms busy; span sum / union "
+          f"{summed / union:.4f}; worst causality break {1e3 * worst:.4f} ms")
+    assert covered >= 0.95
+
+
 @pytest.mark.parametrize("name", ["qwen3-1.7b-reduced", "hymba-1.5b-reduced",
                                   "granite-moe-3b-a800m-reduced",
                                   "llama-3.2-vision-11b-reduced"])

@@ -8,10 +8,13 @@ timelines on a live fake-device system, control-plane annotation instants
 comparability on the virtual clock, and the Prometheus metrics surface
 (text exposition, log-bucket latency histograms, the gauge-insert race);
 plus the simulator's trace export, equal to the JAX package's on the same
-trace.
+trace; and the serving path's own waits and device timing (ring-slot
+wait, admission wait, the device partial's post, each forward's device
+time and its ``<worker>/device`` span).
 """
 import json
 import threading
+import time
 import types
 
 import numpy as np
@@ -459,3 +462,147 @@ def test_sim_trace_export_equals_jax():
         sim.run(sim_mod.poisson_trace(30, rate=200.0, seed=0))
         exports.append(json.dumps(sim.tracer.export(), sort_keys=True))
     assert exports[0] == exports[1]
+
+
+# ---- the serving path's own waits and device timing ------------------------
+
+def _stall_sender(w):
+    """Hold ``w``'s sender before each chunk until the returned event is
+    set: its ring slots stay in flight, so its batcher waits for one."""
+    gate = threading.Event()
+    send = w._send_chunk
+
+    def stalled(*a, **k):
+        gate.wait(30.0)
+        return send(*a, **k)
+    w._send_chunk = stalled
+    return gate
+
+
+def test_slot_wait_takes_the_ring_wait_out_of_batch_fill(ens2):
+    cfgs, params = ens2
+    # one member, batch 8, segment 16: a slot holds one segment, so a
+    # 128-row request needs twice the four ring slots
+    s = make_system(cfgs[:1], params[:1], [[8]], segment_size=16)
+    try:
+        s.predict_async(_X(16)).result(60.0)   # every stage warm
+        s.timers.reset()
+        gate = _stall_sender(s.workers[0])
+        h = s.predict_async(_X(128))
+        time.sleep(0.4)
+        gate.set()
+        h.result(60.0)
+        st = s.stage_timings()
+        assert st["slot_wait"]["total_s"] >= 0.3
+        assert st["batch_fill"]["count"] == 8      # one per descriptor
+        assert st["batch_fill"]["total_s"] < 0.25 * st["slot_wait"]["total_s"]
+        assert st["input_wait"]["count"] == 8
+    finally:
+        s.shutdown()
+
+
+def test_admission_wait_covers_the_in_flight_window(ens2):
+    cfgs, params = ens2
+    s = make_system(cfgs[:1], params[:1], [[8]], max_in_flight=1)
+    try:
+        gate = _stall_sender(s.workers[0])
+        held = s.predict_async(_X(8))          # takes the only window slot
+        s.timers.reset()
+        out = []
+        th = threading.Thread(target=lambda: out.append(
+            s.predict_async(_X(8, seed=1))))
+        t0 = time.perf_counter()
+        th.start()
+        time.sleep(0.4)
+        gate.set()
+        held.result(60.0)
+        th.join(60.0)
+        assert not th.is_alive()
+        out[0].result(60.0)
+        st = s.stage_timings()["admission_wait"]
+        assert st["count"] == 1 and st["total_s"] >= 0.35
+        # the request's timeline is rooted where its caller asked
+        submit = [e for e in s.tracer.tracks()["admission"]
+                  if e[1] == "submit" and e[4] == out[0].req.rid]
+        assert len(submit) == 1
+        assert t0 <= submit[0][2] < t0 + 0.2 and submit[0][3] >= 0.35
+        assert s.tracer.timeline(out[0].req.rid)[0][2] == "submit"
+    finally:
+        s.shutdown()
+
+
+def test_combine_and_post_once_per_fold_and_partial(ens2):
+    cfgs, params = ens2
+    # two members on one device: one partial per segment, two folds into it
+    s = make_system(cfgs, params, [[8, 8]], segment_size=16)
+    try:
+        (comb,) = s.combiners.values()
+        folds = []
+        fold = comb._fold
+
+        def counted(*a, **k):
+            folds.append(1)
+            return fold(*a, **k)
+        comb._fold = counted
+        s.timers.reset()
+        s.predict(_X(40))                      # 3 segments x 2 members
+        st = s.stage_timings()
+        assert len(folds) == 6 and st["combine"]["count"] == 6
+        assert comb.partials_posted == 3 and st["post"]["count"] == 3
+        posts = [e for e in s.tracer.tracks()[f"combine.{comb.name}"]
+                 if e[1] == "post"]
+        assert sorted(e[5]["s"] for e in posts) == [0, 1, 2]
+        assert all(e[5]["count"] == 2 for e in posts)
+    finally:
+        s.shutdown()
+
+
+@pytest.mark.parametrize("tracing", [False, True])
+def test_forward_device_time_only_while_tracing(ens2, tracing):
+    cfgs, params = ens2
+    # real forwards on the CPU (no fake devices): batches of 8 and 16.  The
+    # device timing is the card's alone (tests/test_torch_cuda.py): on the
+    # CPU a forward runs inside its own enqueue, so nothing is recorded,
+    # traced or not; the descriptors' input wait is recorded while tracing
+    s = make_system(cfgs, params, [[8, 16]], segment_size=16, fake=False,
+                    tracing=tracing)
+    try:
+        s.timers.reset()
+        s.predict(_X(40))
+        stages, counters = s.stage_timings(), s.serving_counters()
+        tracks = s.tracer.tracks()
+        assert not [k for k in stages
+                    if k.startswith(("forward_device", "device_queue"))]
+        assert not any(k.startswith("forward_rows") for k in counters)
+        assert not any(t.endswith("/device") for t in tracks)
+        assert stages["transfer"]["count"] > 0      # the forwards did run
+        if tracing:
+            assert stages["input_wait"]["count"] == 2 * 3   # members x segs
+        else:
+            assert "input_wait" not in stages
+    finally:
+        s.shutdown()
+
+
+def test_device_track_exports_forward_spans_joined_through_t_enq():
+    tr = Tracer(enabled=True, capacity=64)
+    tr.ring("w0/batcher").append(("i", "pack", 10.0, 0.0, 1, 1, 0, None))
+    tr.ring("w0/batcher").append(("i", "pack", 11.0, 0.0, (2, 3), 1, 0, None))
+    for t_enq, t0 in ((10.0, 12.0), (11.0, 12.5)):
+        tr.ring("w0/device").append(
+            ("g", "forward", t0, 0.4, None, pack_times((t_enq,)), 1,
+             pack_times((t0 - 0.5, t0 + 0.45))))
+    (_ph, name, t0, dur, rid, args), _ = tr.tracks()["w0/device"]
+    assert (name, t0, dur, rid) == ("forward", 12.0, 0.4, None)
+    assert args == {"t_enq": (10.0,), "chunks": 1, "enqueued": 11.5,
+                    "synced": 12.45}
+    fwd = sorted((ev for ev in tr.export()["traceEvents"]
+                  if ev.get("name") == "forward"), key=lambda e: e["ts"])
+    assert [ev["ph"] for ev in fwd] == ["X", "X"]
+    assert fwd[0]["args"] == {"rid": 1, "chunks": 1}
+    assert fwd[1]["args"] == {"rids": [2, 3], "chunks": 1}
+    assert fwd[0]["ts"] == pytest.approx(2e6)      # rebased to the pack
+    assert fwd[1]["dur"] == pytest.approx(0.4e6)
+    assert ("w0/device", "X", "forward", 12.5, 0.4) in tr.timeline(3)
+    assert not any(e[2] == "forward" and e[3] == 12.5
+                   for e in tr.timeline(1))
