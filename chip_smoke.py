@@ -24,7 +24,12 @@ Phases, one JSON line each; any failed phase exits non-zero:
    next of four sets of operands so that none is read from L2.  Flash, the
    scan and decode are timed at qwen3's and hymba's served shapes; flash
    and the scan also give their error against float64 beside the plain
-   version's and one TF32 pass's;
+   version's and one TF32 pass's.  ``kernel:gemm_tf32x3`` (the SSM
+   members' projections, ``ops.dense``) is held at mamba2's four served
+   shapes and at ragged ones to an error against float64 within twice
+   cuBLAS f32's, timed there beside cuBLAS f32 (``library_ms``) and its
+   3xTF32 bound, and swept over M at both widths for ``crossover``, the
+   least M from which it beats the library (``gemm_tf32x3.MIN_ROWS``);
 4. end to end at full width, one phase per member pair: ``InferenceSystem``
    on one card, ``combine="pallas"``, ``use_kernel=True``, an fp32 member
    and the same widths at half the layers as an int8 member, with random
@@ -37,8 +42,11 @@ Phases, one JSON line each; any failed phase exits non-zero:
    is held against each member's plain forward on the card, 16 rows at a
    time, combined in numpy, and the launch counts must show that each
    attention or hybrid layer ran the flash kernel and each SSM or hybrid
-   layer the scan kernel once per chunk, that the combine kernels ran, and
-   that no plain version did.  ``h2d_staged``, the uploads that the
+   layer the scan kernel once per chunk, each SSM or hybrid layer's
+   projections the GEMM kernel where ``ops.dense``'s rule takes them
+   (``gemm_share``: of the mixers' projection calls, the kernel's), that
+   the combine kernels ran, and that no plain version did.
+   ``h2d_staged``, the uploads that the
    predictors started on their copy streams ahead of the forward that read
    them, must be above 0 (``--profile`` adds the copies' streams beside
    the kernels' and the share of copy time that overlaps a kernel).  The
@@ -65,7 +73,8 @@ Phases, one JSON line each; any failed phase exits non-zero:
    must show one decode-attention launch per self-attention or hybrid
    layer per step (none with the int8 cache; a cross-attention layer
    decodes densely, as in the JAX package), one scan per SSM or hybrid
-   layer of the prefill, and no plain version;
+   layer of the prefill and its projections on the GEMM kernel where the
+   rule takes them, and no plain version;
 6. ``alloc:ENS4``: the paper's allocation procedure on this card for the
    four members of ENS4: worst-fit-decreasing on ``cuda_devices()``, then
    the bounded greedy scoring each matrix with ``MeasuredBench`` (the
@@ -207,6 +216,7 @@ import urllib.error
 import urllib.request
 import weakref
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -299,6 +309,17 @@ COMBINE_SETS = 4               # (preds, partial) sets that the timed folds
 MAIN_SSD = (16, 256, 64, 64, 128, 64)
 HYMBA_SSD = (16, 256, 50, 64, 16, 64)
 MAX_FLIP_SHARE = 0.01          # int8 code flips allowed in the served Y
+GEMM_SHAPES = [                # (M, K, N): mamba2-1.3b's projections served
+    (4096, 2048, 8512),        # in_proj, a chunk of 16 rows x 256 tokens
+    (2048, 2048, 8512),        # in_proj, 8 rows
+    (4096, 4096, 2048),        # out_proj, 16 rows
+    (2048, 4096, 2048),        # out_proj, 8 rows
+]
+# ragged: M, K and N off every tile, M at least gemm_tf32x3.MIN_ROWS
+# (ops.dense sends no smaller M to the kernel)
+GEMM_CASES = [(1030, 1604, 2044), (1000, 1212, 1004), (4099, 2052, 8516)]
+GEMM_SWEEP_M = (128, 256, 512, 768, 1024, 1536, 2048)
+GEMM_ERR_RATIO = 2.0           # kernel's error vs float64 over cuBLAS f32's
 
 
 def emit(obj) -> None:
@@ -856,6 +877,110 @@ def phase_ssd(torch, gen, dev):
             "cuda_core_bound_ms": main["cuda_core_bound_ms"]}
 
 
+def gemm_inputs(torch, gen, dev, m: int, k: int, n: int):
+    """x (M, K) and w (K, N) ~ N(0, 1/K): outputs of order one."""
+    x = torch.randn((m, k), generator=gen, device=dev)
+    w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+    return x, w
+
+
+def gemm_errors(torch, gemm, x, w) -> dict:
+    """The kernel's and cuBLAS f32's largest and relative rms error against
+    the float64 product; fails where the kernel's largest is over
+    ``GEMM_ERR_RATIO`` times cuBLAS's."""
+    want = x.double() @ w.double()
+    out = {}
+    for name, y in (("kernel", gemm.gemm_tf32x3(x, w)),
+                    ("library_f32", x @ w)):
+        e = y.double() - want
+        if not torch.isfinite(y).all():
+            fail(f"gemm_tf32x3: non-finite {name} output")
+        out[name] = {"max_abs_err": e.abs().max().item(),
+                     "rel_rms_err": (e.norm() / want.norm()).item()}
+    out["ratio"] = out["kernel"]["max_abs_err"] / max(
+        out["library_f32"]["max_abs_err"], 1e-30)
+    if out["ratio"] > GEMM_ERR_RATIO:
+        fail(f"gemm_tf32x3: {list(x.shape)} x {list(w.shape)}: error against "
+             f"float64 {out['ratio']:.3g} times cuBLAS f32's: {out}")
+    return out
+
+
+def phase_gemm(torch, gen, dev):
+    from repro_torch.kernels import gemm_tf32x3 as gemm
+    cases = []
+    for m, k, n in GEMM_CASES:
+        x, w = gemm_inputs(torch, gen, dev, m, k, n)
+        cases.append({"shape": [m, k, n], **gemm_errors(torch, gemm, x, w)})
+    timed = []
+    for m, k, n in GEMM_SHAPES:
+        x, w = gemm_inputs(torch, gen, dev, m, k, n)
+        errs = gemm_errors(torch, gemm, x, w)
+        t = timings(torch, lambda: gemm.gemm_tf32x3(x, w), lambda: x @ w,
+                    library=lambda: x @ w)
+        flops = 2.0 * m * k * n
+        nbytes = 4.0 * (m * k + k * n + m * n)
+        # each product runs three times on the tensor cores (3xTF32)
+        t["bound_ms"], t["bound_by"] = bound(nbytes, 3 * flops, TF32_FLOPS)
+        t["bound_rate"] = "3 x operations / 495 TFLOP/s (3xTF32, tensor cores)"
+        t["cuda_core_bound_ms"] = bound(nbytes, flops, F32_FLOPS)[0]
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        t["tflops"] = flops / t["ms"] / 1e9
+        t["library_tflops"] = flops / t["library_ms"] / 1e9
+        t["bytes"], t["flops"] = nbytes, flops
+        timed.append({"shape": [m, k, n], "takes": gemm.takes(m, k, n),
+                      "err_vs_f64": errs, **t})
+        del x, w
+    # the least M from which the kernel is faster than cuBLAS f32 at every
+    # larger M of the sweep, at each served width
+    sweep, crossover = [], {}
+    for k, n in sorted({(k, n) for _, k, n in GEMM_SHAPES}):
+        faster = []
+        for m in GEMM_SWEEP_M:
+            x, w = gemm_inputs(torch, gen, dev, m, k, n)
+            ms = device_ms(torch, lambda: gemm.gemm_tf32x3(x, w))
+            lib = device_ms(torch, lambda: x @ w)
+            sweep.append({"shape": [m, k, n], "ms": ms, "library_ms": lib})
+            faster.append(ms < lib)
+        least = None
+        for m, f in reversed(list(zip(GEMM_SWEEP_M, faster))):
+            if not f:
+                break
+            least = m
+        crossover[f"{k}x{n}"] = least
+    torch.cuda.synchronize()
+    main = timed[0]
+    emit({"phase": "kernel:gemm_tf32x3", "ok": True, "cases": cases,
+          "main_shape": main["shape"], "timed": timed, "sweep": sweep,
+          "crossover": crossover, "min_rows": gemm.MIN_ROWS,
+          **{key: main[key] for key in SUMMARY_TIMES}})
+    return {"name": "gemm_tf32x3", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/gemm_tf32x3.cu",
+            "replaces": "none (the JAX package leaves products to XLA)",
+            "max_abs_err": main["err_vs_f64"]["kernel"]["max_abs_err"],
+            **{key: main[key] for key in SUMMARY_TIMES},
+            "bound_rate": main["bound_rate"],
+            "cuda_core_bound_ms": main["cuda_core_bound_ms"]}
+
+
+def dense_launches(cfg, rows: int) -> int:
+    """GEMM kernel launches of one ``ssm_mixer`` pass over every SSM or
+    hybrid layer of ``cfg`` at ``rows`` rows (batch x tokens): its in_proj
+    and out_proj where ``gemm_tf32x3.takes`` them."""
+    from repro_torch.kernels import gemm_tf32x3 as gemm
+    if cfg.ssm is None:
+        return 0
+    di, n = cfg.d_inner, cfg.ssm.d_state
+    per = (int(gemm.takes(rows, cfg.d_model, 2 * di + 2 * n + cfg.ssm_heads))
+           + int(gemm.takes(rows, di, cfg.d_model)))
+    return per * layer_counts(cfg)[1]
+
+
+def gemm_share(launches, library) -> Optional[float]:
+    """The GEMM kernel's share of the SSM mixers' projection calls."""
+    total = launches.get("gemm_tf32x3", 0) + library.get("dense", 0)
+    return launches.get("gemm_tf32x3", 0) / total if total else None
+
+
 # ---------------------------------------------------------------------------
 def tree_bytes(tree) -> int:
     from repro_torch.kernels.quant import tree_map
@@ -1218,6 +1343,7 @@ def phase_pair(torch, name: str, layers, int8_layers: int, seed: int,
     from repro_torch.kernels import quant as kq
     from repro_torch.models import init_params
     from repro_torch.serving import InferenceSystem
+    from repro_torch.serving.worker import MIN_BUCKET
 
     dev = torch.device("cuda", 0)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1260,6 +1386,7 @@ def phase_pair(torch, name: str, layers, int8_layers: int, seed: int,
             Y, wall, lat_ms = serve(system, X, n_req, rows)
         launches = ops.kernel_launches()
         plain = ops.plain_calls()
+        library = ops.library_calls()
         for w, fn in unwrapped:
             w.predict_fn = fn
         counters = system.serving_counters()
@@ -1335,13 +1462,17 @@ def phase_pair(torch, name: str, layers, int8_layers: int, seed: int,
     if not staged:
         fail(f"{name}: no staged upload was used ({counters})")
     # every dispatched chunk runs its member's forward once: one flash launch
-    # per attention or hybrid layer, one scan launch per SSM or hybrid layer
-    minima = {"flash_attention": 0, "ssd_scan": 0}
+    # per attention or hybrid layer, one scan launch per SSM or hybrid layer,
+    # and a GEMM launch for each of its projections that ops.dense's rule
+    # takes at the least chunk (the least bucket of max_seq tokens)
+    minima = {"flash_attention": 0, "ssd_scan": 0, "gemm_tf32x3": 0}
     for cfg, bs in zip(cfgs, batches):
         chunks = math.ceil(n_req * rows / bs)
         attn, scan = layer_counts(cfg)
         minima["flash_attention"] += attn * chunks
         minima["ssd_scan"] += scan * chunks
+        minima["gemm_tf32x3"] += dense_launches(cfg, MIN_BUCKET * max_seq) \
+            * chunks
     for kname, least in minima.items():
         if launches[kname] < least or (least == 0 and launches[kname]):
             fail(f"{name}: {kname} launched {launches[kname]} times, "
@@ -1391,6 +1522,8 @@ def phase_pair(torch, name: str, layers, int8_layers: int, seed: int,
                      for k, c in checks.items()},
           "elements": int(Y.size),
           "launches": launches, "launch_minima": minima, "plain_calls": plain,
+          "library_calls": library,
+          "gemm_share": gemm_share(launches, library),
           "batches": counters.get("batches"), "h2d_staged": staged,
           "stage_total_s": stages,
           "padding_efficiency": counters.get("padding_efficiency")})
@@ -1502,6 +1635,7 @@ def phase_generate(torch, name: str, layers, prompt_len: int, max_len: int,
     run = generate(torch, params, cfg, prompt, max_len, use_kernel=True,
                    int8_kv=int8_kv, forced=forced, frontend=fe)
     launches, plain = ops.kernel_launches(), ops.plain_calls()
+    library = ops.library_calls()
     cache = run.pop("cache")
     cache_gb = tree_bytes(cache) / 1e9
     kv_dtypes = sorted({str(e[n].dtype) for e in cache["layers"]
@@ -1563,7 +1697,9 @@ def phase_generate(torch, name: str, layers, prompt_len: int, max_len: int,
     attn, scan = layer_counts(cfg)
     want_launches = {"decode_attention": 0 if int8_kv else attn * GEN_STEPS,
                      "ssd_scan": scan, "flash_attention": 0,
-                     "ensemble_combine": 0, "ensemble_combine_quant": 0}
+                     "ensemble_combine": 0, "ensemble_combine_quant": 0,
+                     "gemm_tf32x3": dense_launches(cfg,
+                                                   GEN_BATCH * prompt_len)}
     if launches != want_launches:
         fail(f"{label}: launches {launches}, expected {want_launches}")
     if int8_kv and kv_dtypes != ["torch.int8"]:
@@ -1583,7 +1719,9 @@ def phase_generate(torch, name: str, layers, prompt_len: int, max_len: int,
            "decode_wall_s": run["wall_s"], "cache_gb": cache_gb,
            "kv_dtypes": kv_dtypes, "peak_device_gb": peak_gb,
            "errors": errors, "launches": launches,
-           "expected_launches": want_launches, "plain_calls": plain}
+           "expected_launches": want_launches, "plain_calls": plain,
+           "library_calls": library,
+           "gemm_share": gemm_share(launches, library)}
     if plain_steps is not None:
         out["plain_decode_ms_p50"] = float(np.percentile(plain_steps, 50))
     emit(out)
@@ -1850,7 +1988,8 @@ def phase_ckpt(torch, cfg, params, corpus, seed: int, smi: str) -> dict:
     attn, _ = layer_counts(cfg)
     want_launches = {"decode_attention": attn * CKPT_STEPS,
                      "flash_attention": attn, "ssd_scan": 0,
-                     "ensemble_combine": 0, "ensemble_combine_quant": 0}
+                     "ensemble_combine": 0, "ensemble_combine_quant": 0,
+                     "gemm_tf32x3": 0}
     if launches != want_launches or any(plain.values()):
         fail(f"train:ckpt: launches {launches} (expected {want_launches}), "
              f"plain calls {plain}")
@@ -3382,7 +3521,7 @@ def main(argv=None) -> int:
     gen.manual_seed(args.seed)
     kernels = [phase_flash(torch, gen, dev), phase_combine(torch, gen, dev),
                phase_quant(torch, gen, dev), phase_ssd(torch, gen, dev),
-               phase_decode(torch, gen, dev)]
+               phase_decode(torch, gen, dev), phase_gemm(torch, gen, dev)]
 
     # 4. end to end, one member pair at a time; the launches of the main
     # paths are summed over the pairs' served runs and the generation runs

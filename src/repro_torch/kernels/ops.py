@@ -3,7 +3,9 @@
 Dispatch is by the tensors' device: a CPU tensor goes to the plain version in
 ``ref.py``, a CUDA tensor to the Hopper kernel, which launches or raises.
 Unlike the TPU wrappers nothing is padded: the kernels mask ragged edges
-themselves.
+themselves.  :func:`dense` is the one entry with no JAX counterpart (the JAX
+package leaves its products to XLA): it routes by a rule on its operands,
+between the 3xTF32 GEMM kernel and the call site's own einsum.
 """
 from __future__ import annotations
 
@@ -11,11 +13,15 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import Counter, ref
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import ensemble_combine as _comb
 from repro_torch.kernels import flash_attention as _fa
-from repro_torch.kernels import ref
+from repro_torch.kernels import gemm_tf32x3 as _gemm
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.parallel.collectives import einsum, is_dtensor
+
+library = Counter("dense")
 
 
 def pow2_clamp(n: int, lo: int, hi: int) -> int:
@@ -76,10 +82,69 @@ def ensemble_accumulate_quant(partial, q, scales, weights, *,
                                         weights, out=out)
 
 
+def _product(eq: str, ndim: int) -> bool:
+    """``eq`` is '<batch>k,kn-><batch>n' for an x of ``ndim`` dims: x's last
+    dim contracted with w's first, every other index of x kept in order."""
+    ins, _, out = eq.replace(" ", "").partition("->")
+    a, _, b = ins.partition(",")
+    return (len(a) == ndim and len(b) == 2 and a[-1] == b[0]
+            and len(set(a + b[1])) == ndim + 1 and out == a[:-1] + b[1])
+
+
+def _on_card(t) -> bool:
+    return t.device.type == "cuda"
+
+
+def dense_takes_kernel(x, w, eq: str, use_kernel: bool) -> bool:
+    """Whether :func:`dense` runs ``einsum(eq, x, w)`` on the 3xTF32 GEMM
+    kernel: ``use_kernel``; both operands plain CUDA f32 tensors on one card
+    (no DTensor), neither tracked by autograd, contiguous and 16-byte
+    aligned; ``eq`` a product of x's last dim by ``w (K, N)``; and the
+    shape rule ``gemm_tf32x3.takes`` (M = the rows of x at least its
+    threshold, K and N multiples of 4)."""
+    if not use_kernel or is_dtensor(x) or is_dtensor(w):
+        return False
+    if not _on_card(x) or w.device != x.device:
+        return False
+    if x.dtype != torch.float32 or w.dtype != torch.float32:
+        return False
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return False
+    if w.dim() != 2 or not _product(eq, x.dim()):
+        return False
+    if not (x.is_contiguous() and w.is_contiguous()) or \
+            x.data_ptr() % 16 or w.data_ptr() % 16:
+        return False
+    k, n = w.shape
+    return _gemm.takes(x.numel() // max(k, 1), k, n)
+
+
+def dense(x, w, eq: str, *, use_kernel: bool = False):
+    """``einsum(eq, x, w)``, a product of ``x (..., K)`` by ``w (K, N)``
+    (e.g. "bsd,de->bse").  Where :func:`dense_takes_kernel` holds, the
+    3xTF32 GEMM kernel computes it at f32 accuracy; any other call is the
+    call site's einsum exactly as it was (``parallel.collectives.einsum``,
+    plain or DTensor), counted in :func:`library_calls`.  The route is
+    chosen from the operands before any launch: nothing falls back."""
+    if dense_takes_kernel(x, w, eq, use_kernel):
+        k, n = w.shape
+        return _gemm.gemm_tf32x3(x.reshape(-1, k), w).view(
+            *x.shape[:-1], n)
+    library.add("dense")
+    return einsum(eq, x, w)
+
+
 def kernel_launches() -> Dict[str, int]:
     """Launches of each Hopper kernel since the last :func:`reset_counts`."""
     return {**_fa.launches.snapshot(), **_dec.launches.snapshot(),
-            **_comb.launches.snapshot(), **_ssd.launches.snapshot()}
+            **_comb.launches.snapshot(), **_ssd.launches.snapshot(),
+            **_gemm.launches.snapshot()}
+
+
+def library_calls() -> Dict[str, int]:
+    """Calls of :func:`dense` left to the call site's einsum since the last
+    :func:`reset_counts`."""
+    return library.snapshot()
 
 
 def plain_calls() -> Dict[str, int]:
@@ -92,4 +157,6 @@ def reset_counts() -> None:
     _dec.launches.reset()
     _comb.launches.reset()
     _ssd.launches.reset()
+    _gemm.launches.reset()
+    library.reset()
     ref.calls.reset()

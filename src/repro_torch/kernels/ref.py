@@ -15,7 +15,8 @@ from repro_torch.kernels import Counter
 NEG_INF = -1e30
 
 calls = Counter("flash_attention", "decode_attention", "ensemble_combine",
-                "ensemble_accumulate", "ensemble_accumulate_quant", "ssd_scan")
+                "ensemble_accumulate", "ensemble_accumulate_quant", "ssd_scan",
+                "gemm_tf32x3")
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
@@ -101,3 +102,9 @@ def ensemble_accumulate_quant_ref(partial, q, scales, weights) -> torch.Tensor:
     for m in range(q.shape[0]):
         acc += (q[m].float() * scales[m].float()[:, None]) * weights[m].float()
     return acc
+
+
+def gemm_tf32x3_ref(x, w) -> torch.Tensor:
+    """x (M, K) @ w (K, N) in f32 -> (M, N)."""
+    calls.add("gemm_tf32x3")
+    return x @ w

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import rms_norm
 from repro_torch.parallel.collectives import (einsum, gather_dims,
                                               is_dtensor, pad)
@@ -193,7 +194,10 @@ def ssm_mixer(cfg: ModelConfig, p, xin: torch.Tensor, *,
     state: the last d_conv-1 rows of the pre-conv [x, B, C], left-padded
     with zeros when S is shorter.  ``use_kernel`` runs the scan through
     ``kernels.ops.ssd_scan`` (the Hopper kernel for CUDA tensors, its plain
-    version for CPU tensors)."""
+    version for CPU tensors), and the two projections through
+    ``kernels.ops.dense``, which takes the 3xTF32 GEMM kernel where its rule
+    holds (plain CUDA f32 operands of a large enough product) and the
+    einsum otherwise (always on the CPU)."""
     s = cfg.ssm
     di, n = cfg.d_inner, s.d_state
     if _column_shards(p["in_proj"]):
@@ -204,7 +208,8 @@ def ssm_mixer(cfg: ModelConfig, p, xin: torch.Tensor, *,
         x, bmat, cmat = (_causal_conv(t, w[:, a:b]) for t, a, b in zip(
             pre, (0, di, di + n), (di, di + n, di + 2 * n)))
     else:
-        zxbcdt = einsum("bsd,de->bse", xin, p["in_proj"])
+        zxbcdt = kops.dense(xin, p["in_proj"], "bsd,de->bse",
+                            use_kernel=use_kernel)
         z, x, bmat, cmat, dt = _split_proj(cfg, zxbcdt)
         pre = [torch.cat([x, bmat, cmat], -1)]
         xbc = _causal_conv(pre[0], p["conv_w"])
@@ -214,14 +219,13 @@ def ssm_mixer(cfg: ModelConfig, p, xin: torch.Tensor, *,
     dt = softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"].float())
     if use_kernel:
-        from repro_torch.kernels import ops as kops
         y = kops.ssd_scan(x, dt, A, bmat.float(), cmat.float(), chunk=s.chunk)
     else:
         y = ssd_chunked(x, dt, A, bmat.float(), cmat.float(), s.chunk)
     y = gather_dims(y + x * p["D"][None, None, :, None], (3,))
     y = y.reshape(bsz, slen, di).to(xin.dtype)
     y = _gated_norm(y, z, p["norm"], cfg.norm_eps)
-    out = einsum("bse,ed->bsd", y, p["out_proj"])
+    out = kops.dense(y, p["out_proj"], "bse,ed->bsd", use_kernel=use_kernel)
     if not return_state:
         return out
     hfinal = ssd_final_state(x, dt, A, bmat.float(), s.chunk)

@@ -411,7 +411,8 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
     """Run the prompt tokens (B,S) and return (last-token logits (B,Vpad),
     cache) with room for ``max_len`` positions.  ``quantize_cache`` stores
     K/V as int8 with per-slot, per-head scales; decode then dequantizes on
-    read.  ``use_kernel`` runs the SSM scans on the ``ssd_scan`` kernel.  A
+    read.  ``use_kernel`` runs the SSM scans on the ``ssd_scan`` kernel, and
+    their projections through ``kernels.ops.dense``.  A
     cross-attention layer caches the keys and values of ``frontend``
     (B,F,fdim), which decode reads at every step.  ``cache`` is a
     zero-filled tree of ``init_cache``'s layout to fill in place (a sharded

@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import decode_attention as dec  # noqa: E402
 from repro_torch.kernels import ensemble_combine as ec  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import gemm_tf32x3 as gemm  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import quant as kq  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
@@ -281,6 +282,86 @@ def test_decode_kernel_takes_a_wrapped_window(dev, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+GEMM_CASES = [                 # (M, K, N)
+    (4096, 2048, 8512),        # mamba2 in_proj, a chunk of 16 rows x 256
+    (2048, 2048, 8512),        # ... of 8 rows
+    (4096, 4096, 2048),        # mamba2 out_proj
+    (2048, 4096, 2048),
+    (1000, 1212, 1004),        # M, K and N off every tile
+    (4099, 2052, 8516),
+]
+
+
+@pytest.mark.parametrize("m,k,n", GEMM_CASES)
+def test_gemm_kernel_error_within_twice_cublas(dev, m, k, n):
+    """The 3xTF32 GEMM's largest error against the float64 product is
+    within twice cuBLAS f32's on the same inputs (TF32 off), and a call is
+    one launch."""
+    x = _randn(dev, 1, m, k)
+    w = _randn(dev, 2, k, n) * k ** -0.5
+    before = gemm.launches.snapshot()["gemm_tf32x3"]
+    got = gemm.gemm_tf32x3(x, w)
+    lib = x @ w
+    want = x.double() @ w.double()
+    torch.cuda.synchronize()
+    assert gemm.launches.snapshot()["gemm_tf32x3"] == before + 1
+    assert torch.isfinite(got).all()
+    err = (got.double() - want).abs().max().item()
+    lib_err = (lib.double() - want).abs().max().item()
+    assert err <= 2 * lib_err, (err, lib_err)
+
+
+def test_gemm_kernel_takes_views_and_refuses_what_it_cannot(dev):
+    """A row-offset view that stays 16-byte aligned runs; K or N off a
+    multiple of 4, a misaligned base or a transposed operand raise."""
+    k, n = 64, 96
+    base = _randn(dev, 3, 40 * k + 4)
+    x = base[4:4 + 32 * k].view(32, k)          # 16 bytes past the base
+    w = _randn(dev, 4, k, n)
+    torch.testing.assert_close(gemm.gemm_tf32x3(x, w), x @ w, atol=1e-5,
+                               rtol=1e-5)
+    with pytest.raises(ValueError):
+        gemm.gemm_tf32x3(base[1:1 + 32 * k].view(32, k), w)
+    with pytest.raises(ValueError):
+        gemm.gemm_tf32x3(_randn(dev, 5, 32, 66), _randn(dev, 6, 66, n))
+    with pytest.raises(ValueError):
+        gemm.gemm_tf32x3(x, _randn(dev, 7, k, 98))
+    with pytest.raises(ValueError):
+        gemm.gemm_tf32x3(x, _randn(dev, 8, n, k).t())
+    with pytest.raises(TypeError):
+        gemm.gemm_tf32x3(x.bfloat16(), w.bfloat16())
+
+
+def test_dense_routes_by_its_rule_on_the_card(dev):
+    """At M >= ``MIN_ROWS`` a plain f32 product takes the kernel, at f32
+    accuracy; a small M, ``use_kernel=False`` or an operand under autograd
+    run the einsum bit for bit; no plain version runs."""
+    k, n, eq = 256, 512, "bsd,de->bse"
+    big = _randn(dev, 1, 2, -(-gemm.MIN_ROWS // 2), k)
+    small = _randn(dev, 2, 2, 8, k)
+    w = _randn(dev, 3, k, n) * k ** -0.5
+    ops.reset_counts()
+    got = ops.dense(big, w, eq, use_kernel=True)
+    want = torch.einsum(eq, big.double(), w.double())
+    torch.cuda.synchronize()
+    assert ops.kernel_launches()["gemm_tf32x3"] == 1
+    assert ops.library_calls()["dense"] == 0
+    assert got.shape == (2, big.shape[1], n)
+    assert (got.double() - want).abs().max().item() <= \
+        2 * (torch.einsum(eq, big, w).double() - want).abs().max().item()
+    for x, use_kernel in ((small, True), (big, False)):
+        assert torch.equal(ops.dense(x, w, eq, use_kernel=use_kernel),
+                           torch.einsum(eq, x, w))
+    with torch.enable_grad():
+        wg = w.clone().requires_grad_(True)
+        out = ops.dense(big, wg, eq, use_kernel=True)
+        assert out.grad_fn is not None
+        assert torch.equal(out.detach(), torch.einsum(eq, big, w))
+    assert ops.kernel_launches()["gemm_tf32x3"] == 1
+    assert ops.library_calls()["dense"] == 3
+    assert not any(ops.plain_calls().values())
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     q = torch.zeros((1, 8, 4, 32), device=dev)
     with pytest.raises(ValueError):
@@ -371,6 +452,7 @@ def test_served_ensemble_goes_through_the_kernels(dev):
     X = np.random.default_rng(0).integers(0, 512, (40, 16)).astype(np.int32)
     launches = _serve(dev, ensemble("ENS4")[:2], X, [8, 16])
     assert launches.pop("ssd_scan") == 0          # attention members only
+    assert launches.pop("gemm_tf32x3") == 0       # (it runs SSM projections)
     assert launches.pop("decode_attention") == 0  # no generation here
     assert all(launches.values()), launches
 
@@ -383,6 +465,13 @@ def test_served_ssm_and_hybrid_ensemble_goes_through_the_kernels(dev):
     X = np.random.default_rng(1).integers(0, 512, (40, 72)).astype(np.int32)
     launches = _serve(dev, cfgs, X, [16, 8])
     assert launches.pop("decode_attention") == 0  # no generation here
+    # the projections of a chunk of 16 rows x 72 tokens take the GEMM kernel
+    # where ops.dense's rule does (hymba, fp32); mamba2's 8-row chunks of
+    # the int8 member may fall under its M threshold
+    per_chunk = [sum(gemm.takes(16 * 72, k, n) for k, n in (
+        (c.d_model, 2 * c.d_inner + 2 * c.ssm.d_state + c.ssm_heads),
+        (c.d_inner, c.d_model))) * c.num_layers for c in cfgs]
+    assert launches.pop("gemm_tf32x3") >= per_chunk[0] * 2
     assert all(launches.values()), launches
     chunks = [-(-40 // 16), -(-40 // 8)]
     assert launches["ssd_scan"] >= sum(
@@ -399,6 +488,7 @@ def test_served_moe_and_cross_attention_ensemble_goes_through_the_kernels(
     X = np.random.default_rng(2).integers(0, 512, (40, 16)).astype(np.int32)
     launches = _serve(dev, cfgs, X, [16, 8])
     assert launches.pop("ssd_scan") == 0
+    assert launches.pop("gemm_tf32x3") == 0
     assert launches.pop("decode_attention") == 0
     assert all(launches.values()), launches
 
@@ -826,6 +916,8 @@ def test_every_wrapper_refuses_grad_on_the_card(dev):
         "ensemble_combine_quant": lambda: ec.ensemble_combine_quant(
             P[0], torch.ones((2, 3, 5), dtype=torch.int8, device=dev),
             torch.ones((2, 3), device=dev), torch.ones(2, device=dev)),
+        "gemm_tf32x3": lambda: gemm.gemm_tf32x3(P[0], torch.ones(
+            (5, 4), device=dev)),
     }
     before = ops.kernel_launches()
     for name, call in calls.items():
