@@ -1,7 +1,8 @@
 """Random weights for a configuration, made from the seed on the device, in
 the served program's parameter layout: nested dicts and lists, every
 layer leaf stacked over the pattern's repeats, the embedding padded to
-``vocab_pad_to`` rows.
+``vocab_pad_to`` rows.  A layer's leaves are its family module's
+(``harness/family.py``); their law is by leaf name, here.
 
 Each member takes two generator calls, one normal and one uniform draw
 over all of its leaves, whose slices are then scaled in place: matrices
@@ -12,10 +13,12 @@ log(1 + 15 u).  The same tensors go to the program and to the reference.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
+
+from harness import family
 
 NORMS = ("pre_norm", "mlp_norm", "norm", "final_norm")
 UNIFORM = ("dt_bias", "A_log")
@@ -24,30 +27,6 @@ UNIFORM = ("dt_bias", "A_log")
 def padded_vocab(cfg: dict) -> int:
     p = cfg["vocab_pad_to"]
     return -(-cfg["vocab_size"] // p) * p
-
-
-def layer_shapes(cfg: dict, kind: str) -> Dict[str, Tuple[int, ...]]:
-    """One layer's leaves (without the repeats dim)."""
-    d = cfg["d_model"]
-    shapes: Dict[str, Tuple[int, ...]] = {"pre_norm": (d,)}
-    if kind in ("attn", "swa", "hybrid"):
-        h, kv = cfg["num_heads"], cfg["num_kv_heads"]
-        hd = cfg["head_dim"] or d // h
-        shapes.update(wq=(d, h, hd), wk=(d, kv, hd), wv=(d, kv, hd),
-                      wo=(h, hd, d))
-    if kind in ("ssm", "hybrid"):
-        sc = cfg["ssm"]
-        di = sc["expand"] * d
-        nh = di // sc["head_dim"]
-        shapes.update(in_proj=(d, 2 * di + 2 * sc["d_state"] + nh),
-                      conv_w=(sc["d_conv"], di + 2 * sc["d_state"]),
-                      dt_bias=(nh,), A_log=(nh,), D=(nh,), norm=(di,),
-                      out_proj=(di, d))
-    if cfg["d_ff"] > 0:
-        f = cfg["d_ff"]
-        shapes.update(mlp_norm=(d,), w_gate=(d, f), w_up=(d, f),
-                      w_down=(f, d))
-    return shapes
 
 
 def tree_shapes(cfg: dict, layers: int):
@@ -61,6 +40,7 @@ def tree_shapes(cfg: dict, layers: int):
     tree = {"embed": (vp, d), "final_norm": (d,)}
     if not cfg["tie_embeddings"]:
         tree["head"] = (d, vp)
+    layer_shapes = family.module(cfg).layer_shapes
     tree["layers"] = [{k: (reps,) + v for k, v in
                        layer_shapes(cfg, kind).items()} for kind in pattern]
     return tree

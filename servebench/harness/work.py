@@ -15,9 +15,13 @@ each output written once.
 """
 from __future__ import annotations
 
+from harness import family
+
 PEAK_TF32_FLOPS = 495e12        # TF32 tensor cores, dense
 HBM_BYTES_PER_S = 3.35e12
 F32 = 4
+ATTENTION = ("attn", "swa", "hybrid")   # layer kinds that run flash_call
+SCAN = ("ssm", "hybrid")                # layer kinds that run ssd_call
 
 
 def attn_pairs(s: int, window: int) -> int:
@@ -67,27 +71,24 @@ def bound_s(nbytes: float, ops: float) -> float:
 
 def member_flops_per_row(cfg: dict, layers: int, s: int) -> float:
     """Model FLOPs of one row of ``s`` tokens through a member of
-    ``layers`` layers: every product, the scan's and attention's
-    algorithmic ops, and the head on the last position only."""
+    ``layers`` layers: each layer's products and conv (its family
+    module's ``layer_flops``), attention's and the scan's algorithmic ops,
+    and the head on the last position only."""
     d = cfg["d_model"]
     pattern = cfg["pattern"]
+    layer_flops = family.module(cfg).layer_flops
     total = 0.0
     for r in range(layers):
         kind = pattern[r % len(pattern)]
-        if kind in ("attn", "swa", "hybrid"):
+        total += layer_flops(cfg, kind, s)
+        if kind in ATTENTION:
             h, kv = cfg["num_heads"], cfg["num_kv_heads"]
             hd = cfg["head_dim"] or d // h
-            total += 2 * s * d * hd * (2 * h + 2 * kv)          # q, k, v, o
             window = cfg["sliding_window"] if kind != "attn" else 0
             total += flash_call(1, s, h, kv, hd, window)[1]
-        if kind in ("ssm", "hybrid"):
-            di, n, p, h, k = ssm_dims(cfg)
-            total += 2 * s * d * (2 * di + 2 * n + h)           # in_proj
-            total += 2 * s * k * (di + 2 * n)                   # conv
+        if kind in SCAN:
+            _, n, p, h, _ = ssm_dims(cfg)
             total += ssd_call(1, s, h, p, n, cfg["ssm"]["chunk"])[1]
-            total += 2 * s * di * d                             # out_proj
-        if cfg["d_ff"] > 0:
-            total += 3 * 2 * s * d * cfg["d_ff"]                # SwiGLU
     return total + 2 * d * cfg["vocab_size"]                    # the head
 
 

@@ -2,6 +2,12 @@
 forwards, per-channel int8 weight quantization, per-row int8 logit
 quantization and the weighted combine.
 
+The family module (``harness/family.py``) of the attention, SWA, SSM and
+hybrid layer kinds, each followed by a dense SwiGLU MLP where ``d_ff`` >
+0: their leaves (``layer_shapes``), their products (``layer_flops``) and
+the ensemble's answer (``combined``).  Another family's module may build
+on the layers and on ``combine_members`` here.
+
 It reads a configuration file's dict and a parameter tree in the served
 program's layout (nested dicts and lists; every layer leaf stacked over the
 pattern's repeats), and imports nothing of the program.  Everything runs
@@ -26,7 +32,8 @@ program's, listed in each configuration file under ``assumed``):
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Sequence
+import math
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -67,6 +74,39 @@ def precision(name: str, device: torch.device):
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32, _TF32_EMULATE) = old
+
+
+# ---------------------------------------------------------------- leaves
+def layer_shapes(cfg: dict, kind: str) -> Dict[str, Tuple[int, ...]]:
+    """One layer's leaves (without the repeats dim)."""
+    d = cfg["d_model"]
+    shapes: Dict[str, Tuple[int, ...]] = {"pre_norm": (d,)}
+    if kind in ("attn", "swa", "hybrid"):
+        h, kv = cfg["num_heads"], cfg["num_kv_heads"]
+        hd = cfg["head_dim"] or d // h
+        shapes.update(wq=(d, h, hd), wk=(d, kv, hd), wv=(d, kv, hd),
+                      wo=(h, hd, d))
+    if kind in ("ssm", "hybrid"):
+        sc = cfg["ssm"]
+        di = sc["expand"] * d
+        nh = di // sc["head_dim"]
+        shapes.update(in_proj=(d, 2 * di + 2 * sc["d_state"] + nh),
+                      conv_w=(sc["d_conv"], di + 2 * sc["d_state"]),
+                      dt_bias=(nh,), A_log=(nh,), D=(nh,), norm=(di,),
+                      out_proj=(di, d))
+    if cfg["d_ff"] > 0:
+        f = cfg["d_ff"]
+        shapes.update(mlp_norm=(d,), w_gate=(d, f), w_up=(d, f),
+                      w_down=(f, d))
+    return shapes
+
+
+def layer_flops(cfg: dict, kind: str, s: int) -> int:
+    """A layer's products and conv over ``s`` positions: every position
+    meets each leaf of two or more dims once (q, k, v, o, in_proj,
+    out_proj, the MLP, and the conv's taps), 2 ops an element."""
+    return 2 * s * sum(math.prod(v) for v in layer_shapes(cfg, kind).values()
+                       if len(v) > 1)
 
 
 # ---------------------------------------------------------------- quantization
@@ -242,9 +282,10 @@ def block(cfg: dict, kind: str, p, x):
 
 
 def member_logits(cfg: dict, layers: int, w: Weights,
-                  tokens: torch.Tensor) -> torch.Tensor:
+                  tokens: torch.Tensor, block: Callable = block
+                  ) -> torch.Tensor:
     """Last-position class scores (B, vocab) of one member of ``layers``
-    layers for tokens (B, S)."""
+    layers for tokens (B, S), each layer ``block(cfg, kind, leaves, x)``."""
     pattern = cfg["pattern"]
     x = w.embed_rows(tokens)
     for r in range(layers // len(pattern)):
@@ -260,14 +301,15 @@ def member_logits(cfg: dict, layers: int, w: Weights,
     return out[:, :cfg["vocab_size"]]
 
 
-def combined(cfg: dict, trees: Sequence, tokens: torch.Tensor, *,
-             block_rows: int = 16, prec: str = "fp32") -> Dict[str, object]:
+def combine_members(cfg: dict, trees: Sequence, tokens: torch.Tensor,
+                    logits: Callable, *, block_rows: int = 16,
+                    prec: str = "fp32") -> Dict[str, object]:
     """The ensemble's answer for ``tokens`` (R, S), computed ``block_rows``
-    rows at a time: each member's last-token class scores, an int8
-    member's scores quantized per row, the members weighted by the
-    configuration's combine weights (normalized to sum 1).  Returns
-    ``Y`` (R, vocab), the int8 members' row scales ``scales`` {member:
-    (R,)} and the normalized ``weights``."""
+    rows at a time: each member's last-token class scores ``logits(cfg,
+    layers, Weights, tokens)``, an int8 member's scores quantized per row,
+    the members weighted by the configuration's combine weights
+    (normalized to sum 1).  Returns ``Y`` (R, vocab), the int8 members' row
+    scales ``scales`` {member: (R,)} and the normalized ``weights``."""
     members = cfg["members"]
     wsum = sum(m["weight"] for m in members)
     weights = [m["weight"] / wsum for m in members]
@@ -278,8 +320,8 @@ def combined(cfg: dict, trees: Sequence, tokens: torch.Tensor, *,
             tok = tokens[lo:lo + block_rows]
             y = None
             for i, (m, tree) in enumerate(zip(members, trees)):
-                lg = member_logits(cfg, m["num_layers"],
-                                   Weights(tree, m["dtype"] == "int8"), tok)
+                lg = logits(cfg, m["num_layers"],
+                            Weights(tree, m["dtype"] == "int8"), tok)
                 if m["dtype"] == "int8":
                     q, s = quantize_rows(lg)
                     lg = q * s
@@ -292,3 +334,10 @@ def combined(cfg: dict, trees: Sequence, tokens: torch.Tensor, *,
     return {"Y": torch.cat(out),
             "scales": {i: torch.cat(v) for i, v in scales.items()},
             "weights": weights}
+
+
+def combined(cfg: dict, trees: Sequence, tokens: torch.Tensor, *,
+             block_rows: int = 16, prec: str = "fp32") -> Dict[str, object]:
+    """``combine_members`` over this module's ``member_logits``."""
+    return combine_members(cfg, trees, tokens, member_logits,
+                           block_rows=block_rows, prec=prec)

@@ -82,7 +82,7 @@ def main(argv=None) -> int:
               "power_limit": power_limit()}
     if args.trace:
         device["busy_s"], device["window_s"] = res["busy_s"], res["window_s"]
-    checks = {k: {"value": v, "limit": res["limits"][k]}
+    checks = {k: {"value": v, "limit": res["limits"].get(k)}
               for k, v in res["numbers"].items()}
     cell.log(f"compared {res['sampled_rows']} rows of "
              f"{res['attempted']} requests")

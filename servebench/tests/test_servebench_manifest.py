@@ -5,7 +5,7 @@ import re
 
 import pytest
 
-from harness import cell
+from harness import cell, family
 from servebench_fixtures import ROOT
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -93,3 +93,15 @@ def test_each_cell_reports_what_it_must(cell):
     for m in MANIFEST["per_layer"]:
         by_layer.setdefault(m["layer"].lower(), set()).add(m["layer"])
     assert all(len(v) == 1 for v in by_layer.values())
+
+
+@pytest.mark.parametrize("config", sorted(
+    p.stem for p in (ROOT / "servebench" / "configs").glob("*.json")))
+def test_each_configuration_names_its_family_module(config):
+    cfg = cell.load_config(config)
+    assert NAME.match(cfg["reference"])
+    assert (BENCH / "reference" / f"{cfg['reference']}.py").is_file()
+    mod = family.module(cfg)
+    assert all(callable(getattr(mod, f)) for f in family.FUNCTIONS)
+    assert set(family.FUNCTIONS) == {"layer_shapes", "layer_flops",
+                                     "combined"}

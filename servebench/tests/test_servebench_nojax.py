@@ -9,7 +9,7 @@ from servebench_fixtures import ROOT
 
 BENCH = ROOT / "servebench"
 PROBE = r"""
-import importlib.util, json, sys
+import glob, importlib.util, json, os, sys
 sys.path[:0] = [{bench!r}, {src!r}]
 {body}
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
@@ -31,12 +31,14 @@ def test_harness_loads_no_jax():
         "run = importlib.util.module_from_spec(spec)\n"
         "spec.loader.exec_module(run)\n"
         "run._environment()\n"
-        "from harness import cell, check, devtrace, stats, traffic, weights\n"
-        "from reference import model\n"
+        "from harness import cell, check, devtrace, family, stats, traffic\n"
+        "from harness import weights, work\n"
+        "for f in glob.glob(os.path.join("
+        f"{str(BENCH / 'configs')!r}, '*.json')):\n"
+        "    family.module(json.load(open(f)))\n"
         "import calibrate, sweep\n"
         "cell.port_models(cell.load_spec('mamba2-pair.bulk')['cfg'])\n"
         "from repro_torch.serving import InferenceSystem\n"
-        "import glob, os\n"
         "for f in glob.glob(os.path.join("
         f"{str(BENCH / 'metrics')!r}, '*.py')):\n"
         "    cell.reader(os.path.basename(f)[:-3])\n"
@@ -48,7 +50,12 @@ def test_harness_loads_no_jax():
 
 
 def test_reference_loads_nothing_of_the_program():
-    names = _loaded("from reference import model")
-    assert "torch" in names
-    assert not names & {"jax", "jaxlib", "flax", "repro", "repro_torch",
-                        "harness"}, names
+    """Each family module under ``servebench/reference/``, alone."""
+    modules = sorted(p.stem for p in (BENCH / "reference").glob("*.py")
+                     if p.stem != "__init__")
+    assert "model" in modules
+    for module in modules:
+        names = _loaded(f"import reference.{module}")
+        assert "torch" in names
+        assert not names & {"jax", "jaxlib", "flax", "repro", "repro_torch",
+                            "harness"}, (module, names)

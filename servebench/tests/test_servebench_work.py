@@ -43,7 +43,8 @@ def test_bound_takes_the_longer_term():
 
 
 def _mamba(d=8, layers=2):
-    return {"d_model": d, "pattern": ["ssm"], "d_ff": 0, "vocab_size": 10,
+    return {"reference": "model", "d_model": d, "pattern": ["ssm"],
+            "d_ff": 0, "vocab_size": 10,
             "num_heads": 0, "num_kv_heads": 0, "head_dim": 0,
             "sliding_window": 0, "max_seq": 4,
             "ssm": {"expand": 2, "d_state": 4, "head_dim": 8, "d_conv": 4,
