@@ -29,7 +29,12 @@ Phases, one JSON line each; any failed phase exits non-zero:
    shapes and at ragged ones to an error against float64 within twice
    cuBLAS f32's, timed there beside cuBLAS f32 (``library_ms``) and its
    3xTF32 bound, and swept over M at both widths for ``crossover``, the
-   least M from which it beats the library (``gemm_tf32x3.MIN_ROWS``);
+   least M from which it beats the library (``gemm_tf32x3.MIN_ROWS``).
+   ``kernel:gemm_tf32x3_grouped`` (the dropless MoE's expert products,
+   ``ops.grouped_dense``) is held at granite-4.0-h-small's member-0 share
+   (9 of 72 experts held, one of them emptied, gate/up gathered K 4096 ->
+   768 and down 768 -> 4096 scattered) and on a call with no rows to the
+   same error rule, and timed beside cuBLAS f32 one expert at a time;
 4. end to end at full width, one phase per member pair: ``InferenceSystem``
    on one card, ``combine="pallas"``, ``use_kernel=True``, an fp32 member
    and the same widths at half the layers as an int8 member, with random
@@ -320,6 +325,12 @@ GEMM_SHAPES = [                # (M, K, N): mamba2-1.3b's projections served
 GEMM_CASES = [(1030, 1604, 2044), (1000, 1212, 1004), (4099, 2052, 8516)]
 GEMM_SWEEP_M = (128, 256, 512, 768, 1024, 1536, 2048)
 GEMM_ERR_RATIO = 2.0           # kernel's error vs float64 over cuBLAS f32's
+# granite-4.0-h-small's dropless MoE, member 0's share on one card: 32 rows
+# of 256 tokens, top-10 of 72 experts, experts 0-8 held, d 4096, width 768
+GROUPED_TOKENS, GROUPED_D, GROUPED_F = 32 * 256, 4096, 768
+GROUPED_EXPERTS, GROUPED_TOP_K, GROUPED_HELD = 72, 10, 9
+GROUPED_EMPTY = 3              # a held expert whose assignments are moved
+                               # off it, so that one expert has no rows
 
 
 def emit(obj) -> None:
@@ -962,6 +973,153 @@ def phase_gemm(torch, gen, dev):
             "cuda_core_bound_ms": main["cuda_core_bound_ms"]}
 
 
+def phase_grouped(torch, gen, dev):
+    """The grouped 3xTF32 expert GEMM (``csrc/gemm_tf32x3_grouped.cu``) at
+    granite4h-pair's member-0 shapes: a random top-10 of 72 router over 32
+    x 256 tokens, the 9 held experts' assignments grouped on the card
+    (``models.moe.held_assignments``), one held expert emptied.  The gate/up
+    product (rows gathered, K 4096 -> N 768) and the down product (K 768
+    -> N 4096, scattered, router-weighted, onto the tokens) are each held
+    to float64 within ``GEMM_ERR_RATIO`` times the plain version's (cuBLAS
+    f32) error, a 0-row call too, and each call is one launch; then timed
+    as the other kernels are, beside cuBLAS f32 one expert at a time at
+    offsets the host knows."""
+    from repro_torch.configs.base import ModelConfig, MoEConfig
+    from repro_torch.kernels import gemm_tf32x3 as gemm
+    from repro_torch.kernels import ref
+    from repro_torch.models.moe import _router, held_assignments
+    tokens, d, f = GROUPED_TOKENS, GROUPED_D, GROUPED_F
+    held = GROUPED_HELD
+    cfg = ModelConfig(
+        name="granite-share", family="hybrid", num_layers=1, d_model=d,
+        num_heads=32, num_kv_heads=8, d_ff=0, vocab_size=100352,
+        moe=MoEConfig(num_experts=GROUPED_EXPERTS, top_k=GROUPED_TOP_K,
+                      d_ff_expert=f, impl="dropless", experts_held=held))
+    x = torch.randn((tokens, d), generator=gen, device=dev)
+    router = torch.randn((d, GROUPED_EXPERTS), generator=gen,
+                         device=dev) * 0.02
+    weights, idx, _ = _router(x, router, GROUPED_TOP_K)
+    idx = torch.where(idx == GROUPED_EMPTY, GROUPED_EXPERTS - 1, idx)
+    offsets, rows, scale, counts = held_assignments(cfg, idx, weights)
+    offs = offsets.tolist()
+    a, used = rows.shape[0], offs[-1]
+    if counts[GROUPED_EMPTY].item() != 0 or min(
+            c for e, c in enumerate(counts.tolist())
+            if e != GROUPED_EMPTY) == 0:
+        fail(f"gemm_tf32x3_grouped: rows per expert {counts.tolist()}: "
+             f"expected expert {GROUPED_EMPTY} alone empty")
+
+    def check(what, got, plain, want, n_rows):
+        got, plain, want = got[:n_rows], plain[:n_rows], want[:n_rows]
+        if not torch.isfinite(got).all():
+            fail(f"gemm_tf32x3_grouped: non-finite {what} output")
+        err = (got.double() - want).abs().max().item() if n_rows else 0.0
+        lib = (plain.double() - want).abs().max().item() if n_rows else 0.0
+        if err > GEMM_ERR_RATIO * lib:
+            fail(f"gemm_tf32x3_grouped: {what}: error against float64 "
+                 f"{err:.3g}, over {GEMM_ERR_RATIO} times the plain "
+                 f"version's {lib:.3g}")
+        return {"max_abs_err": err, "library_f32_max_abs_err": lib,
+                "ratio": err / max(lib, 1e-30)}
+
+    def library_loop(inp, w, gather, dst=None):
+        """cuBLAS f32, one product an expert, the offsets known here."""
+        def run():
+            y = dst if dst is not None else inp.new_empty((a, w.shape[2]))
+            for e in range(held):
+                lo, hi = offs[e], offs[e + 1]
+                if hi <= lo:
+                    continue
+                xe = inp[rows[lo:hi].long()] if gather else inp[lo:hi]
+                if dst is None:
+                    y[lo:hi] = xe @ w[e]
+                else:
+                    y.index_add_(0, rows[lo:hi].long(),
+                                 scale[lo:hi, None] * (xe @ w[e]))
+            return y
+        return run
+
+    def launched(fn):
+        """``fn()``, which has to launch the kernel exactly once."""
+        before = gemm.launches.snapshot()["gemm_tf32x3_grouped"]
+        y = fn()
+        torch.cuda.synchronize()
+        n = gemm.launches.snapshot()["gemm_tf32x3_grouped"] - before
+        if n != 1:
+            fail(f"gemm_tf32x3_grouped: {n} launches for one call")
+        return y
+
+    timed, errors = [], {}
+    for name, k, n in (("gate_up", d, f), ("down", f, d)):
+        w = torch.randn((held, k, n), generator=gen, device=dev) * k ** -0.5
+        if name == "gate_up":
+            inp, dst = x, None
+            kernel = lambda: gemm.gemm_tf32x3_grouped(inp, w, offsets,
+                                                      rows=rows)
+            plain = lambda: ref.gemm_tf32x3_grouped_ref(inp, w, offsets,
+                                                        rows=rows)
+            got = launched(kernel)
+            want = ref.gemm_tf32x3_grouped_ref(inp.double(), w.double(),
+                                               offsets, rows=rows)
+            errors[name] = check(name, got, plain(), want, used)
+            lib = library_loop(inp, w, True)
+        else:
+            inp = torch.randn((a, k), generator=gen, device=dev)
+            start = torch.randn((tokens, n), generator=gen, device=dev)
+            dst = start.clone()
+            got = launched(lambda: gemm.gemm_tf32x3_grouped(
+                inp, w, offsets, out=dst, scatter=rows, scale=scale))
+            want = ref.gemm_tf32x3_grouped_ref(
+                inp.double(), w.double(), offsets, out=start.double(),
+                scatter=rows, scale=scale.double())
+            errors[name] = check(name, got, ref.gemm_tf32x3_grouped_ref(
+                inp, w, offsets, out=start.clone(), scatter=rows,
+                scale=scale), want, tokens)
+            kernel = lambda: gemm.gemm_tf32x3_grouped(
+                inp, w, offsets, out=dst, scatter=rows, scale=scale)
+            plain = lambda: ref.gemm_tf32x3_grouped_ref(
+                inp, w, offsets, out=dst, scatter=rows, scale=scale)
+            lib = library_loop(inp, w, False, dst)
+        t = timings(torch, kernel, plain, library=lib)
+        flops = 2.0 * used * k * n
+        nbytes = 4.0 * (held * k * n + used * k + used * n)
+        # each product runs three times on the tensor cores (3xTF32)
+        t["bound_ms"], t["bound_by"] = bound(nbytes, 3 * flops, TF32_FLOPS)
+        t["bound_rate"] = "3 x operations / 495 TFLOP/s (3xTF32, tensor cores)"
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        t["tflops"] = flops / t["ms"] / 1e9
+        t["library_tflops"] = flops / t["library_ms"] / 1e9
+        t["bytes"], t["flops"] = nbytes, flops
+        timed.append({"product": name, "shape": [used, k, n],
+                      "experts": held, "err_vs_f64": errors[name], **t})
+        del w, inp, dst, got, want
+    # a call with no rows at all: one launch, nothing written
+    empty = torch.zeros(held + 1, dtype=torch.int32, device=dev)
+    w = torch.randn((held, f, d), generator=gen, device=dev)
+    dst = torch.randn((16, d), generator=gen, device=dev)
+    start = dst.clone()
+    launched(lambda: gemm.gemm_tf32x3_grouped(
+        torch.randn((16, f), generator=gen, device=dev), w, empty, out=dst,
+        scatter=torch.zeros(16, dtype=torch.int32, device=dev),
+        scale=torch.ones(16, device=dev)))
+    if not torch.equal(dst, start):
+        fail("gemm_tf32x3_grouped: a call with no rows wrote its output")
+    del w, dst, start, x
+    torch.cuda.synchronize()
+    main = timed[0]
+    emit({"phase": "kernel:gemm_tf32x3_grouped", "ok": True,
+          "tokens": tokens, "held_rows": used, "rows_bound": a,
+          "rows_per_expert": counts.tolist(), "empty_expert": GROUPED_EMPTY,
+          "main_product": main["product"], "timed": timed,
+          **{key: main[key] for key in SUMMARY_TIMES}})
+    return {"name": "gemm_tf32x3_grouped", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/gemm_tf32x3_grouped.cu",
+            "replaces": "none (the JAX package's MoE layers are einsums)",
+            "max_abs_err": main["err_vs_f64"]["max_abs_err"],
+            **{key: main[key] for key in SUMMARY_TIMES},
+            "bound_rate": main["bound_rate"]}
+
+
 def dense_launches(cfg, rows: int) -> int:
     """GEMM kernel launches of one ``ssm_mixer`` pass over every SSM or
     hybrid layer of ``cfg`` at ``rows`` rows (batch x tokens): its in_proj
@@ -1465,7 +1623,10 @@ def phase_pair(torch, name: str, layers, int8_layers: int, seed: int,
     # per attention or hybrid layer, one scan launch per SSM or hybrid layer,
     # and a GEMM launch for each of its projections that ops.dense's rule
     # takes at the least chunk (the least bucket of max_seq tokens)
-    minima = {"flash_attention": 0, "ssd_scan": 0, "gemm_tf32x3": 0}
+    # (no pair here has a dropless MoE layer, so the grouped GEMM has to
+    # stay unlaunched)
+    minima = {"flash_attention": 0, "ssd_scan": 0, "gemm_tf32x3": 0,
+              "gemm_tf32x3_grouped": 0}
     for cfg, bs in zip(cfgs, batches):
         chunks = math.ceil(n_req * rows / bs)
         attn, scan = layer_counts(cfg)
@@ -1699,7 +1860,8 @@ def phase_generate(torch, name: str, layers, prompt_len: int, max_len: int,
                      "ssd_scan": scan, "flash_attention": 0,
                      "ensemble_combine": 0, "ensemble_combine_quant": 0,
                      "gemm_tf32x3": dense_launches(cfg,
-                                                   GEN_BATCH * prompt_len)}
+                                                   GEN_BATCH * prompt_len),
+                     "gemm_tf32x3_grouped": 0}
     if launches != want_launches:
         fail(f"{label}: launches {launches}, expected {want_launches}")
     if int8_kv and kv_dtypes != ["torch.int8"]:
@@ -1989,7 +2151,7 @@ def phase_ckpt(torch, cfg, params, corpus, seed: int, smi: str) -> dict:
     want_launches = {"decode_attention": attn * CKPT_STEPS,
                      "flash_attention": attn, "ssd_scan": 0,
                      "ensemble_combine": 0, "ensemble_combine_quant": 0,
-                     "gemm_tf32x3": 0}
+                     "gemm_tf32x3": 0, "gemm_tf32x3_grouped": 0}
     if launches != want_launches or any(plain.values()):
         fail(f"train:ckpt: launches {launches} (expected {want_launches}), "
              f"plain calls {plain}")
@@ -3521,7 +3683,8 @@ def main(argv=None) -> int:
     gen.manual_seed(args.seed)
     kernels = [phase_flash(torch, gen, dev), phase_combine(torch, gen, dev),
                phase_quant(torch, gen, dev), phase_ssd(torch, gen, dev),
-               phase_decode(torch, gen, dev), phase_gemm(torch, gen, dev)]
+               phase_decode(torch, gen, dev), phase_gemm(torch, gen, dev),
+               phase_grouped(torch, gen, dev)]
 
     # 4. end to end, one member pair at a time; the launches of the main
     # paths are summed over the pairs' served runs and the generation runs

@@ -34,6 +34,19 @@ class MoEConfig:
     impl: str = "capacity"            # "capacity" (TPU expert-parallel, may drop
                                       # tokens) | "dense" (dropless, exact; used by
                                       # reduced configs and correctness tests)
+                                      # | "dropless" (port only: the held experts'
+                                      # assignments grouped on the device)
+    # Port only: this device's share of an expert-parallel layer, experts
+    # ``first_expert .. first_expert + experts_held - 1`` of the router's
+    # ``num_experts`` (0: every expert).  The router keeps its width and
+    # top-k; the layer computes the held experts' part of the result.
+    experts_held: int = 0
+    first_expert: int = 0
+
+    @property
+    def held(self) -> int:
+        """Experts whose weights this device holds."""
+        return self.experts_held or self.num_experts
 
 
 @dataclass(frozen=True)
@@ -43,6 +56,7 @@ class SSMConfig:
     expand: int = 2                   # d_inner = expand * d_model
     d_conv: int = 4
     chunk: int = 64                   # SSD chunk length
+    conv_bias: bool = False           # port only: a bias in the causal conv
     # number of heads derived: expand * d_model // head_dim
 
 
@@ -71,6 +85,13 @@ class ModelConfig:
     embed_scale: bool = False         # gemma-style sqrt(d_model) embed scaling
     vocab_pad_to: int = 256           # pad vocab so the sharded dim divides the mesh
     source: str = ""                  # citation for the config
+    # Port only, named as granite-4.0-h's config.json names them; the
+    # defaults are neutral and add no operation to the forward.
+    position_embedding_type: str = "rope"   # "rope" | "nope" (no RoPE)
+    attention_multiplier: float = 0.0       # softmax scale; 0 -> hd^-0.5
+    embedding_multiplier: float = 1.0       # embedding rows times this
+    residual_multiplier: float = 1.0        # each sublayer's output times this
+    logits_scaling: float = 1.0             # logits divided by this
     # families with no MLP block (pure mamba2): d_ff == 0
 
     def __post_init__(self):
@@ -83,6 +104,15 @@ class ModelConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or (self.d_model // max(self.num_heads, 1))
+
+    @property
+    def rope(self) -> bool:
+        return self.position_embedding_type != "nope"
+
+    @property
+    def attn_scale(self) -> Optional[float]:
+        """The attention softmax scale, None for the default hd^-0.5."""
+        return self.attention_multiplier or None
 
     @property
     def repeats(self) -> int:
@@ -164,6 +194,7 @@ class ModelConfig:
             n += d * (2 * di + 2 * s.d_state + self.ssm_heads)   # in_proj (x,z,B,C,dt)
             n += s.d_conv * (di + 2 * s.d_state)                 # conv
             n += 3 * self.ssm_heads                              # A_log, D, dt_bias
+            n += (di + 2 * s.d_state) if s.conv_bias else 0      # conv bias
             n += di                                              # gated norm
             n += di * d                                          # out_proj
             n += d if kind == SSM else 0                         # pre-norm (hybrid shares attn norm)
@@ -172,7 +203,7 @@ class ModelConfig:
             if self.moe is not None:
                 m = self.moe
                 n += self.d_model * m.num_experts                      # router
-                n += m.num_experts * 3 * self.d_model * m.d_ff_expert  # experts
+                n += m.held * 3 * self.d_model * m.d_ff_expert         # experts
                 if m.shared_expert:
                     n += 3 * self.d_model * m.d_ff_shared
                 n += self.d_model                                      # pre-norm
@@ -235,7 +266,7 @@ class ModelConfig:
                 self.moe, num_experts=min(max_experts, self.moe.num_experts),
                 top_k=min(self.moe.top_k, 2), d_ff_expert=d_model,
                 d_ff_shared=d_model if self.moe.shared_expert else 0,
-                impl="dense")
+                impl="dense", experts_held=0, first_expert=0)
         ssm = None
         if self.ssm is not None:
             ssm = dataclasses.replace(self.ssm, d_state=16, head_dim=32, chunk=16)

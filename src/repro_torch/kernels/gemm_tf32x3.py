@@ -1,7 +1,9 @@
-"""Wrapper of the Hopper 3xTF32 GEMM (``csrc/gemm_tf32x3.cu``).
+"""Wrappers of the Hopper 3xTF32 GEMMs (``csrc/gemm_tf32x3.cu`` and its
+grouped sibling ``csrc/gemm_tf32x3_grouped.cu``).
 
 ``out (M, N) = x (M, K) @ w (K, N)`` in f32, on the tensor cores at f32
-accuracy.  A CUDA tensor goes to the kernel, a CPU tensor to the plain
+accuracy; the grouped entry runs each expert's rows through its own
+``w[e]``.  A CUDA tensor goes to the kernel, a CPU tensor to the plain
 version in ``ref.py``; there is no other path.  Which products come here at
 all is ``ops.dense``'s rule, on what it can observe of its operands
 (:func:`takes` is its shape part): three tensor-core passes pay only where
@@ -15,7 +17,7 @@ import torch
 
 from repro_torch.kernels import Counter, _build, ref, refuse_grad
 
-launches = Counter("gemm_tf32x3")
+launches = Counter("gemm_tf32x3", "gemm_tf32x3_grouped")
 
 _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 # The least M (rows of x) that ``ops.dense`` sends here: the larger of the
@@ -65,4 +67,74 @@ def gemm_tf32x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, stream)
     _build.check(err, "gemm_tf32x3")
     launches.add("gemm_tf32x3")
+    return out
+
+
+_GROUPED_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def _index(t, n: int, name: str):
+    """``t`` as a contiguous int32 vector of ``n`` entries on the card."""
+    if t.dim() != 1 or t.shape[0] != n or t.dtype != torch.int32:
+        raise ValueError(f"gemm_tf32x3_grouped: {name} must be ({n},) int32")
+    return t.contiguous()
+
+
+def gemm_tf32x3_grouped(x, w, offsets, *, rows=None, out=None, scatter=None,
+                        scale=None) -> torch.Tensor:
+    """Grouped products at f32 accuracy: ``x`` (R, K), ``w`` (E, K, N),
+    ``offsets`` (E+1,) int32 in device memory.  Grouped row i of expert e
+    (offsets[e] <= i < offsets[e+1]) is ``x[rows[i]] @ w[e]``, or ``x[i]
+    @ w[e]`` where ``rows`` is None.  Without ``scatter`` returns the
+    grouped rows (A, N), A the length of ``rows`` (or R), rows past
+    offsets[E] unspecified; with ``scatter`` (A,) and ``scale`` (A,) adds
+    ``scale[i]`` times row i into ``out[scatter[i]]`` (atomically, in no
+    fixed order) and returns ``out``.  The host reads nothing of the
+    offsets: the kernel's persistent blocks walk the tiles they give."""
+    refuse_grad("gemm_tf32x3_grouped", x, w, out)
+    if x.dim() != 2 or w.dim() != 3 or x.shape[1] != w.shape[1]:
+        raise ValueError(f"gemm_tf32x3_grouped: x {tuple(x.shape)} and w "
+                         f"{tuple(w.shape)} are not (R, K) and (E, K, N)")
+    if x.dtype != torch.float32 or w.dtype != torch.float32:
+        raise TypeError("gemm_tf32x3_grouped: the kernel takes f32 inputs "
+                        "only")
+    if (scatter is None) != (scale is None) or \
+            (scatter is None) != (out is None):
+        raise ValueError("gemm_tf32x3_grouped: out, scatter and scale go "
+                         "together")
+    e, k, n = w.shape
+    a = x.shape[0] if rows is None else rows.shape[0]
+    if x.device.type == "cpu":
+        return ref.gemm_tf32x3_grouped_ref(x, w, offsets, rows, out, scatter,
+                                           scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"gemm_tf32x3_grouped: unsupported device "
+                         f"{x.device}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("gemm_tf32x3_grouped: inputs must be contiguous")
+    if k % 4 or n % 4 or x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError(f"gemm_tf32x3_grouped: K {k} and N {n} must be "
+                         f"multiples of 4 and x, w 16-byte aligned")
+    offsets = _index(offsets, e + 1, "offsets")
+    if rows is not None:
+        rows = _index(rows, a, "rows")
+    if scatter is None:
+        out = torch.empty((a, n), dtype=torch.float32, device=x.device)
+    else:
+        scatter = _index(scatter, a, "scatter")
+        if scale.shape != (a,) or scale.dtype != torch.float32 or \
+                out.dtype != torch.float32 or out.dim() != 2 or \
+                out.shape[1] != n or not out.is_contiguous():
+            raise ValueError("gemm_tf32x3_grouped: scale must be (A,) f32 "
+                             "and out (T, N) f32, contiguous")
+        scale = scale.contiguous()
+    ptr = lambda t: None if t is None else t.data_ptr()
+    fn = _build.function("repro_gemm_tf32x3_grouped", _GROUPED_ARGS)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                 offsets.data_ptr(), ptr(rows), ptr(scatter), ptr(scale),
+                 e, a, k, n, stream)
+    _build.check(err, "gemm_tf32x3_grouped")
+    launches.add("gemm_tf32x3_grouped")
     return out

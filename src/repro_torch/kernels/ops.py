@@ -3,9 +3,11 @@
 Dispatch is by the tensors' device: a CPU tensor goes to the plain version in
 ``ref.py``, a CUDA tensor to the Hopper kernel, which launches or raises.
 Unlike the TPU wrappers nothing is padded: the kernels mask ragged edges
-themselves.  :func:`dense` is the one entry with no JAX counterpart (the JAX
-package leaves its products to XLA): it routes by a rule on its operands,
-between the 3xTF32 GEMM kernel and the call site's own einsum.
+themselves.  :func:`dense` and :func:`grouped_dense` have no JAX counterpart
+(the JAX package leaves its products to XLA): each routes by a rule on its
+operands, :func:`dense` between the 3xTF32 GEMM kernel and the call site's
+own einsum, :func:`grouped_dense` between the grouped kernel and its plain
+version.
 """
 from __future__ import annotations
 
@@ -29,26 +31,33 @@ def pow2_clamp(n: int, lo: int, hi: int) -> int:
     return min(hi, max(lo, 1 << max(n - 1, 1).bit_length()))
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B,S,H,hd), k/v: (B,S,KV,hd) -> (B,S,H,hd); scale 1/sqrt(hd).
+def _q_scale(q, scale: Optional[float]) -> float:
+    """The softmax scale (default 1/sqrt(hd)) rounded to q's dtype, as the
+    JAX wrapper's weakly-typed ``q * hd**-0.5`` rounds it."""
+    s = q.shape[3] ** -0.5 if scale is None else scale
+    return float(torch.tensor(s, dtype=q.dtype))
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None):
+    """q: (B,S,H,hd), k/v: (B,S,KV,hd) -> (B,S,H,hd); softmax scale
+    ``scale``, default 1/sqrt(hd).
 
     q is scaled before the kernel in its own dtype, with the scale itself
     rounded to that dtype first, exactly as the JAX wrapper's weakly-typed
     ``q * hd**-0.5`` does (in bf16 this rounds q, and parity depends on it)."""
-    hd = q.shape[3]
-    scale = float(torch.tensor(hd ** -0.5, dtype=q.dtype))
-    return _fa.flash_attention((q * scale).contiguous(), k.contiguous(),
-                               v.contiguous(), causal=causal, window=window)
+    return _fa.flash_attention((q * _q_scale(q, scale)).contiguous(),
+                               k.contiguous(), v.contiguous(), causal=causal,
+                               window=window)
 
 
-def decode_attention(q, k, v, valid):
+def decode_attention(q, k, v, valid, *, scale: Optional[float] = None):
     """q: (B,1,H,hd), k/v: (B,L,KV,hd), valid: (L,) bool -> (B,1,H,hd);
-    scale 1/sqrt(hd).  q is scaled in its own dtype as in
-    :func:`flash_attention`; neither L nor hd is padded."""
-    hd = q.shape[3]
-    scale = float(torch.tensor(hd ** -0.5, dtype=q.dtype))
-    return _dec.decode_attention((q * scale).contiguous(), k.contiguous(),
-                                 v.contiguous(), valid.bool().contiguous())
+    softmax scale ``scale``, default 1/sqrt(hd).  q is scaled in its own
+    dtype as in :func:`flash_attention`; neither L nor hd is padded."""
+    return _dec.decode_attention((q * _q_scale(q, scale)).contiguous(),
+                                 k.contiguous(), v.contiguous(),
+                                 valid.bool().contiguous())
 
 
 def ssd_scan(x, dt, A, bmat, cmat, *, chunk: int = 64):
@@ -95,13 +104,10 @@ def _on_card(t) -> bool:
     return t.device.type == "cuda"
 
 
-def dense_takes_kernel(x, w, eq: str, use_kernel: bool) -> bool:
-    """Whether :func:`dense` runs ``einsum(eq, x, w)`` on the 3xTF32 GEMM
-    kernel: ``use_kernel``; both operands plain CUDA f32 tensors on one card
-    (no DTensor), neither tracked by autograd, contiguous and 16-byte
-    aligned; ``eq`` a product of x's last dim by ``w (K, N)``; and the
-    shape rule ``gemm_tf32x3.takes`` (M = the rows of x at least its
-    threshold, K and N multiples of 4)."""
+def _kernel_operands(x, w, use_kernel: bool) -> bool:
+    """``use_kernel``, and x and w plain CUDA f32 tensors on one card (no
+    DTensor), neither tracked by autograd, contiguous and 16-byte
+    aligned: what the 3xTF32 GEMM kernels read."""
     if not use_kernel or is_dtensor(x) or is_dtensor(w):
         return False
     if not _on_card(x) or w.device != x.device:
@@ -110,10 +116,18 @@ def dense_takes_kernel(x, w, eq: str, use_kernel: bool) -> bool:
         return False
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return False
-    if w.dim() != 2 or not _product(eq, x.dim()):
+    return x.is_contiguous() and w.is_contiguous() and \
+        not x.data_ptr() % 16 and not w.data_ptr() % 16
+
+
+def dense_takes_kernel(x, w, eq: str, use_kernel: bool) -> bool:
+    """Whether :func:`dense` runs ``einsum(eq, x, w)`` on the 3xTF32 GEMM
+    kernel: :func:`_kernel_operands`; ``eq`` a product of x's last dim by
+    ``w (K, N)``; and the shape rule ``gemm_tf32x3.takes`` (M = the rows
+    of x at least its threshold, K and N multiples of 4)."""
+    if not _kernel_operands(x, w, use_kernel):
         return False
-    if not (x.is_contiguous() and w.is_contiguous()) or \
-            x.data_ptr() % 16 or w.data_ptr() % 16:
+    if w.dim() != 2 or not _product(eq, x.dim()):
         return False
     k, n = w.shape
     return _gemm.takes(x.numel() // max(k, 1), k, n)
@@ -132,6 +146,32 @@ def dense(x, w, eq: str, *, use_kernel: bool = False):
             *x.shape[:-1], n)
     library.add("dense")
     return einsum(eq, x, w)
+
+
+def grouped_takes_kernel(x, w, use_kernel: bool) -> bool:
+    """Whether :func:`grouped_dense` runs on the grouped 3xTF32 kernel:
+    :func:`_kernel_operands`, x (R, K) and w (E, K, N), K and N multiples
+    of 4."""
+    if not _kernel_operands(x, w, use_kernel):
+        return False
+    if x.dim() != 2 or w.dim() != 3 or x.shape[1] != w.shape[1]:
+        return False
+    return w.shape[1] % 4 == 0 and w.shape[2] % 4 == 0
+
+
+def grouped_dense(x, w, offsets, *, rows=None, out=None, scatter=None,
+                  scale=None, use_kernel: bool = False):
+    """Each expert's grouped rows through its own ``w[e]`` (``gemm_tf32x3.
+    gemm_tf32x3_grouped`` says how rows, offsets, scatter and scale are
+    read).  Where :func:`grouped_takes_kernel` holds, the grouped 3xTF32
+    kernel computes it with no host wait; any other call, on the CPU or
+    the card, is the plain version ``ref.gemm_tf32x3_grouped_ref``, whose
+    host reads the offsets, counted in :func:`plain_calls`."""
+    if grouped_takes_kernel(x, w, use_kernel):
+        return _gemm.gemm_tf32x3_grouped(x, w, offsets, rows=rows, out=out,
+                                         scatter=scatter, scale=scale)
+    return ref.gemm_tf32x3_grouped_ref(x, w, offsets, rows, out, scatter,
+                                       scale)
 
 
 def kernel_launches() -> Dict[str, int]:

@@ -16,7 +16,7 @@ NEG_INF = -1e30
 
 calls = Counter("flash_attention", "decode_attention", "ensemble_combine",
                 "ensemble_accumulate", "ensemble_accumulate_quant", "ssd_scan",
-                "gemm_tf32x3")
+                "gemm_tf32x3", "gemm_tf32x3_grouped")
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
@@ -108,3 +108,29 @@ def gemm_tf32x3_ref(x, w) -> torch.Tensor:
     """x (M, K) @ w (K, N) in f32 -> (M, N)."""
     calls.add("gemm_tf32x3")
     return x @ w
+
+
+def gemm_tf32x3_grouped_ref(x, w, offsets, rows=None, out=None, scatter=None,
+                            scale=None) -> torch.Tensor:
+    """The grouped products in f32, expert by expert (the host reads the
+    offsets).  ``x`` (R, K), ``w`` (E, K, N), ``offsets`` (E+1,): grouped
+    row i of expert e (offsets[e] <= i < offsets[e+1]) is ``x[rows[i]] @
+    w[e]`` (``x[i]`` where ``rows`` is None).  Without ``scatter``, returns
+    them as (A, N), A the rows of ``rows`` (or of ``x``), zeros past
+    offsets[E]; with it, adds ``scale[i]`` times row i into
+    ``out[scatter[i]]`` and returns ``out``."""
+    calls.add("gemm_tf32x3_grouped")
+    offs = [int(o) for o in offsets.tolist()]
+    n_rows = x.shape[0] if rows is None else rows.shape[0]
+    y = x.new_zeros((n_rows, w.shape[-1])) if scatter is None else out
+    for e in range(w.shape[0]):
+        lo, hi = offs[e], offs[e + 1]
+        if hi <= lo:
+            continue
+        xe = x[lo:hi] if rows is None else x[rows[lo:hi].long()]
+        ye = xe @ w[e]
+        if scatter is None:
+            y[lo:hi] = ye
+        else:
+            y.index_add_(0, scatter[lo:hi].long(), scale[lo:hi, None] * ye)
+    return y

@@ -108,8 +108,10 @@ def _carries(qf):
 
 
 def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0,
-                      chunk: int = _CHUNK) -> torch.Tensor:
-    """Online-softmax attention looping over KV chunks; O(Sq*chunk) memory."""
+                      chunk: int = _CHUNK,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """Online-softmax attention looping over KV chunks; O(Sq*chunk) memory.
+    ``scale`` defaults to hd^-0.5."""
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     if sk % chunk:                                   # pad kv to chunk multiple
@@ -120,7 +122,7 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0,
     nk = k.shape[1] // chunk
     k = _expand_kv(k, h)
     v = _expand_kv(v, h)
-    qf = q.float() * (hd ** -0.5)
+    qf = q.float() * (hd ** -0.5 if scale is None else scale)
     m, l, acc = _carries(qf)
     for i in range(nk):
         sl = slice(i * chunk, (i + 1) * chunk)
@@ -148,18 +150,20 @@ def self_attention(cfg: ModelConfig, p, x, positions, *, window: int = 0,
                    use_kernel: bool = False) -> torch.Tensor:
     """Full-sequence causal attention for serving/prefill.  x: (B,S,D)."""
     q, k, v = project_qkv(cfg, p, x)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    s = x.shape[1]
+    if cfg.rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    s, scale = x.shape[1], cfg.attn_scale
     if use_kernel:
         from repro_torch.kernels import ops as kops
-        out = kops.flash_attention(q, k, v, causal=True, window=window)
+        out = kops.flash_attention(q, k, v, causal=True, window=window,
+                                   scale=scale)
     elif s <= _DENSE_MAX:
         out = dense_attention(q, k, v, positions, positions, causal=True,
-                              window=window)
+                              window=window, scale=scale)
     else:
         out = chunked_attention(q, k, v, positions, positions, causal=True,
-                                window=window)
+                                window=window, scale=scale)
     return einsum("bshk,hkd->bsd", out, p["wo"])
 
 
@@ -237,9 +241,10 @@ def decode_attention(cfg: ModelConfig, p, x, k_cache, v_cache, pos: int, *,
     L divides that axis."""
     L = k_cache.shape[1]
     q, k_new, v_new = project_qkv(cfg, p, x)
-    posv = torch.full((1,), pos, device=x.device)
-    q = apply_rope(q, posv, cfg.rope_theta)
-    k_new = apply_rope(k_new, posv, cfg.rope_theta)
+    if cfg.rope:
+        posv = torch.full((1,), pos, device=x.device)
+        q = apply_rope(q, posv, cfg.rope_theta)
+        k_new = apply_rope(k_new, posv, cfg.rope_theta)
     quantized = k_scale is not None
     mesh = _flash_decode_mesh(L, quantized)
     if mesh is not None:
@@ -262,7 +267,8 @@ def decode_attention(cfg: ModelConfig, p, x, k_cache, v_cache, pos: int, *,
     valid = slot_valid(L, pos, window, x.device)
     if use_kernel and not quantized:
         from repro_torch.kernels import ops as kops
-        out = kops.decode_attention(q, k_read, v_read, valid)
+        out = kops.decode_attention(q, k_read, v_read, valid,
+                                    scale=cfg.attn_scale)
     else:
-        out = masked_decode(q, k_read, v_read, valid)
+        out = masked_decode(q, k_read, v_read, valid, scale=cfg.attn_scale)
     return einsum("bshk,hkd->bsd", out, p["wo"])

@@ -9,6 +9,15 @@ Two implementations, chosen by ``cfg.moe.impl`` as in the JAX package:
   ``cap`` (token, k) assignments a group, ranked k-major (every token's first
   choice before any token's second), the rest dropped.
 
+and a third of the port's own, ``"dropless"`` (:func:`moe_ffn_dropless`):
+one device's share of an expert-parallel layer (``MoEConfig.experts_held``
+from ``first_expert``).  The router runs over every expert; the
+assignments to the held experts are grouped by expert on the device, run
+through their SwiGLU on ``kernels.ops.grouped_dense`` and scattered back,
+weighted, onto the shared expert's output.  Its shapes are static and the
+host never waits on the device in it, so a forward runs ahead of the card
+(and can be captured in a CUDA graph).
+
 The JAX package dispatches and combines with one-hot einsums so that expert
 sharding becomes an all-to-all; here the same functions are a scatter of
 token rows into the ``(groups, E, cap, D)`` buffer and a gather back out.
@@ -27,14 +36,18 @@ tensors pass as they are.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+import threading
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from repro_torch import runtime_flags
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import axis_sizes, batch_axes
+from repro_torch.models.layers import swiglu
 from repro_torch.parallel import collectives
 from repro_torch.parallel.collectives import einsum, gather_dims, is_dtensor
 from repro_torch.parallel.sharding import P, constrain, to_placements
@@ -68,6 +81,96 @@ def _shared_expert(cfg: ModelConfig, p, x, out):
         su = einsum("bsd,df->bsf", x, p["ws_up"])
         out = out + einsum("bsf,fd->bsd", F.silu(sh) * su, p["ws_down"])
     return out
+
+
+# ------------------------------------------------------------------ dropless
+class MoETally:
+    """Device counters of one forward function's dropless MoE layers: the
+    layer calls, the assignments computed on this device, and the sum over
+    calls of the largest held expert's rows.  The layers add into a device
+    tensor (no host wait); :meth:`read` copies it home once."""
+
+    NAMES = ("moe_calls", "moe_assignments", "moe_max_rows")
+    _current = threading.local()
+
+    def __init__(self):
+        self.t = None
+
+    @contextlib.contextmanager
+    def active(self, device):
+        """Context in which this thread's dropless layers add into this
+        tally (made on ``device`` at first use)."""
+        if self.t is None:
+            self.t = torch.zeros(len(self.NAMES), dtype=torch.int64,
+                                 device=device)
+        MoETally._current.t = self.t
+        try:
+            yield
+        finally:
+            MoETally._current.t = None
+
+    def read(self) -> Dict[str, float]:
+        if self.t is None:
+            return {}
+        return dict(zip(self.NAMES, map(float, self.t.tolist())))
+
+
+def _tally(counts: torch.Tensor) -> None:
+    """Add one call with held-expert rows ``counts`` to the thread's tally."""
+    t = getattr(MoETally._current, "t", None)
+    if t is not None:
+        t.add_(torch.stack((torch.ones_like(counts[0]), counts.sum(),
+                            counts.max())))
+
+
+def held_assignments(cfg: ModelConfig, idx: torch.Tensor,
+                     weights: torch.Tensor):
+    """The assignments of ``idx`` (T, k) to the held experts, grouped by
+    expert in static shapes: (offsets (held+1,) int32, rows (A,) int32,
+    scale (A,), counts (held,) int64).  Grouped row i, for i <
+    offsets[held], is an assignment to held expert e where offsets[e] <= i <
+    offsets[e+1], of token rows[i] at router weight scale[i], tokens in
+    order within an expert; rows past offsets[held] are other experts'.
+    A = T * min(k, held), the most a batch can route here."""
+    m = cfg.moe
+    t, k = idx.shape
+    h = m.held
+    local = idx - m.first_expert
+    key = torch.where((local >= 0) & (local < h), local, h).reshape(-1)
+    order = torch.argsort(key, stable=True)[:t * min(k, h)]
+    counts = torch.zeros(h + 1, dtype=torch.int64, device=idx.device
+                         ).scatter_add_(0, key, torch.ones_like(key))[:h]
+    offsets = torch.cat((counts.new_zeros(1), torch.cumsum(counts, 0)))
+    rows = torch.div(order, k, rounding_mode="floor")
+    return (offsets.to(torch.int32), rows.to(torch.int32),
+            weights.reshape(-1)[order], counts)
+
+
+def moe_ffn_dropless(cfg: ModelConfig, p, x: torch.Tensor, *,
+                     use_kernel: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This device's share of the layer: x (B,S,D) -> (the held experts'
+    part of the routed sum plus the shared expert (B,S,D), 0).  Routing
+    is over all ``num_experts``; each token's top-k by the stable sort,
+    renormalized over the k.  Serving only: no load-balance loss."""
+    from repro_torch.kernels import ops as kops
+    with record_function("moe.dropless"):
+        b, s, d = x.shape
+        xt = x.reshape(-1, d)
+        weights, idx, _ = _router(xt, p["router"], cfg.moe.top_k)
+        offsets, rows, scale, counts = held_assignments(cfg, idx, weights)
+        g = kops.grouped_dense(xt, p["w_gate"], offsets, rows=rows,
+                               use_kernel=use_kernel)
+        u = kops.grouped_dense(xt, p["w_up"], offsets, rows=rows,
+                               use_kernel=use_kernel)
+        out = swiglu(xt, p["ws_gate"], p["ws_up"], p["ws_down"]) \
+            if cfg.moe.shared_expert else torch.zeros_like(xt)
+        out = kops.grouped_dense(F.silu(g) * u, p["w_down"], offsets,
+                                 out=out, scatter=rows, scale=scale,
+                                 use_kernel=use_kernel)
+        _tally(counts)
+    return out.reshape(b, s, d), torch.zeros((), dtype=torch.float32,
+                                             device=x.device)
 
 
 def moe_ffn_dense(cfg: ModelConfig, p, x: torch.Tensor
@@ -202,10 +305,16 @@ def _c(t, *spec):
     return constrain(t, P(*full), mesh)
 
 
-def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B,S,D) -> (out (B,S,D), aux_loss scalar)."""
+def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor, *,
+            use_kernel: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B,S,D) -> (out (B,S,D), aux_loss scalar).  ``use_kernel``
+    runs the dropless layer's expert products on the grouped GEMM kernel."""
     m = cfg.moe
+    if m.impl == "dropless":
+        return moe_ffn_dropless(cfg, p, x, use_kernel=use_kernel)
+    if m.held != m.num_experts:
+        raise ValueError(f"{cfg.name}: a share of {m.held} of "
+                         f"{m.num_experts} experts needs impl='dropless'")
     if m.impl == "dense":
         return moe_ffn_dense(cfg, p, x)
     b, s, d = x.shape

@@ -75,13 +75,15 @@ def _project_parts(cfg: ModelConfig, xin, w):
     return z, x, gather_dims(bmat, (2,)), gather_dims(cmat, (2,)), dt
 
 
-def _causal_conv(xbc: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv.  xbc: (B,S,C), w: (K,C).  The K shifted
-    products are summed in the JAX package's order (not ``F.conv1d``)."""
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
+                 b=None) -> torch.Tensor:
+    """Depthwise causal conv, then SiLU.  xbc: (B,S,C), w: (K,C), the bias
+    b: (C,) or None.  The K shifted products are summed in the JAX
+    package's order (not ``F.conv1d``)."""
     k, s = w.shape[0], xbc.shape[1]
     xp = pad(xbc, (0, 0, k - 1, 0))
     out = sum(xp[:, i:i + s, :] * w[i] for i in range(k))
-    return F.silu(out)
+    return F.silu(out if b is None else out + b)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -204,15 +206,17 @@ def ssm_mixer(cfg: ModelConfig, p, xin: torch.Tensor, *,
         # heads sharded: a projection and a depthwise conv per part (the
         # conv of a concatenation is the concatenation of the convs)
         z, *pre, dt = _project_parts(cfg, xin, p["in_proj"])
-        w = p["conv_w"]
-        x, bmat, cmat = (_causal_conv(t, w[:, a:b]) for t, a, b in zip(
-            pre, (0, di, di + n), (di, di + n, di + 2 * n)))
+        w, cb = p["conv_w"], p.get("conv_b")
+        x, bmat, cmat = (_causal_conv(t, w[:, lo:hi],
+                                      None if cb is None else cb[lo:hi])
+                         for t, lo, hi in zip(pre, (0, di, di + n),
+                                              (di, di + n, di + 2 * n)))
     else:
         zxbcdt = kops.dense(xin, p["in_proj"], "bsd,de->bse",
                             use_kernel=use_kernel)
         z, x, bmat, cmat, dt = _split_proj(cfg, zxbcdt)
         pre = [torch.cat([x, bmat, cmat], -1)]
-        xbc = _causal_conv(pre[0], p["conv_w"])
+        xbc = _causal_conv(pre[0], p["conv_w"], p.get("conv_b"))
         x, bmat, cmat = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
     bsz, slen = xin.shape[0], xin.shape[1]
     x = x.reshape(bsz, slen, cfg.ssm_heads, s.head_dim).float()
@@ -246,7 +250,10 @@ def ssm_decode_step(cfg: ModelConfig, p, xin: torch.Tensor,
     z, x, bmat, cmat, dt = _split_proj(cfg, zxbcdt)
     xbc_new = torch.cat([x, bmat, cmat], -1)                   # (B,1,C)
     window = torch.cat([conv_state, xbc_new], dim=1)           # (B,K,C)
-    conv_out = F.silu((window * p["conv_w"][None]).sum(dim=1))  # (B,C)
+    conv_out = (window * p["conv_w"][None]).sum(dim=1)          # (B,C)
+    if "conv_b" in p:
+        conv_out = conv_out + p["conv_b"]
+    conv_out = F.silu(conv_out)
     conv_state.copy_(window[:, 1:])
     di, n = cfg.d_inner, s.d_state
     xt = conv_out[:, :di].reshape(-1, cfg.ssm_heads, s.head_dim).float()

@@ -68,12 +68,14 @@ def _layer_param_shapes(cfg: ModelConfig, kind: str) -> Dict[str, Tuple[int, ...
                       conv_w=(s.d_conv, di + 2 * s.d_state),
                       dt_bias=(nh,), A_log=(nh,), D=(nh,),
                       norm=(di,), out_proj=(di, d))
+        if s.conv_bias:
+            shapes.update(conv_b=(di + 2 * s.d_state,))
     if cfg.moe is not None:
         m = cfg.moe
         shapes.update(mlp_norm=(d,), router=(d, m.num_experts),
-                      w_gate=(m.num_experts, d, m.d_ff_expert),
-                      w_up=(m.num_experts, d, m.d_ff_expert),
-                      w_down=(m.num_experts, m.d_ff_expert, d))
+                      w_gate=(m.held, d, m.d_ff_expert),
+                      w_up=(m.held, d, m.d_ff_expert),
+                      w_down=(m.held, m.d_ff_expert, d))
         if m.shared_expert:
             shapes.update(ws_gate=(d, m.d_ff_shared), ws_up=(d, m.d_ff_shared),
                           ws_down=(m.d_ff_shared, d))
@@ -155,8 +157,20 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
         x = dequantize(node["q"][idx], node["s"][idx])
         if cfg.embed_scale:
             x = x * math.sqrt(node["q"].shape[1])
-        return x
-    return embed(tokens, leaf(node), cfg.embed_scale)
+        return _embed_multiplier(cfg, x)
+    return _embed_multiplier(cfg, embed(tokens, leaf(node), cfg.embed_scale))
+
+
+def _embed_multiplier(cfg: ModelConfig, x):
+    m = cfg.embedding_multiplier
+    return x if m == 1.0 else x * m
+
+
+def _residual(cfg: ModelConfig, x, out):
+    """``x`` plus a sublayer's output ``out``, scaled by the residual
+    multiplier where the config sets one."""
+    m = cfg.residual_multiplier
+    return x + out if m == 1.0 else x + out * m
 
 
 def _frontend(cfg: ModelConfig, frontend):
@@ -187,33 +201,35 @@ def _apply_layer(cfg: ModelConfig, kind: str, lp, x, positions, frontend,
     h = rms_norm(x, lp["pre_norm"], cfg.norm_eps)
     if kind in (ATTN, SWA):
         window = 0 if kind == ATTN else cfg.sliding_window
-        x = x + attn_mod.self_attention(cfg, lp, h, positions, window=window,
-                                        use_kernel=use_kernel)
+        x = _residual(cfg, x, attn_mod.self_attention(
+            cfg, lp, h, positions, window=window, use_kernel=use_kernel))
     elif kind == CROSS:
-        x = x + attn_mod.cross_attention(cfg, lp, h,
-                                         _frontend(cfg, frontend))
+        x = _residual(cfg, x, attn_mod.cross_attention(
+            cfg, lp, h, _frontend(cfg, frontend)))
     elif kind == SSM:
-        x = x + ssm_mod.ssm_mixer(cfg, lp, h, use_kernel=use_kernel)
+        x = _residual(cfg, x, ssm_mod.ssm_mixer(cfg, lp, h,
+                                                use_kernel=use_kernel))
     elif kind == HYBRID:
         a = attn_mod.self_attention(cfg, lp, h, positions,
                                     window=cfg.sliding_window,
                                     use_kernel=use_kernel)
         m = ssm_mod.ssm_mixer(cfg, lp, h, use_kernel=use_kernel)
-        x = x + 0.5 * (a + m)
+        x = _residual(cfg, x, 0.5 * (a + m))
     else:
         raise ValueError(kind)
-    return _apply_mlp(cfg, lp, x)
+    return _apply_mlp(cfg, lp, x, use_kernel)
 
 
-def _apply_mlp(cfg: ModelConfig, lp, x):
+def _apply_mlp(cfg: ModelConfig, lp, x, use_kernel: bool = False):
     """The layer's MLP or MoE after its mixer -> (x, aux loss or 0)."""
     if cfg.moe is not None:
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        out, aux = moe_ffn(cfg, lp, h)
-        return x + out, aux
+        out, aux = moe_ffn(cfg, lp, h, use_kernel=use_kernel)
+        return _residual(cfg, x, out), aux
     if cfg.d_ff > 0:
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+        x = _residual(cfg, x, swiglu(h, lp["w_gate"], lp["w_up"],
+                                     lp["w_down"]))
     return x, 0.0
 
 
@@ -302,7 +318,8 @@ def logits_from_hidden(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tenso
     """Final norm and head: (..., D) -> (..., Vpad)."""
     x = rms_norm(x, leaf(params["final_norm"]), cfg.norm_eps)
     table = leaf(params["embed"] if cfg.tie_embeddings else params["head"])
-    return unembed(x, table, cfg.tie_embeddings)
+    out = unembed(x, table, cfg.tie_embeddings)
+    return out if cfg.logits_scaling == 1.0 else out / cfg.logits_scaling
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -336,12 +353,12 @@ def _ring_fill(dst: torch.Tensor, k: torch.Tensor) -> None:
     dst[:, slots] = k[:, s - take:]
 
 
-def _add_mixers(kind: str, x, a_out, m_out):
+def _add_mixers(cfg: ModelConfig, kind: str, x, a_out, m_out):
     """The residual plus the layer's mixer: attention, the SSM, or for a
     hybrid layer the mean of both."""
     if kind == HYBRID:
-        return x + 0.5 * (a_out + m_out)
-    return x + (m_out if kind == SSM else a_out)
+        return _residual(cfg, x, 0.5 * (a_out + m_out))
+    return _residual(cfg, x, m_out if kind == SSM else a_out)
 
 
 def _prefill_layer(cfg: ModelConfig, kind: str, lp, x, positions, frontend,
@@ -354,14 +371,17 @@ def _prefill_layer(cfg: ModelConfig, kind: str, lp, x, positions, frontend,
     if kind in (ATTN, SWA, HYBRID):
         window = 0 if kind == ATTN else cfg.sliding_window
         q, k, v = attn_mod.project_qkv(cfg, lp, h)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        if cfg.rope:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
         if x.shape[1] <= attn_mod._DENSE_MAX:
             out = attn_mod.dense_attention(q, k, v, positions, positions,
-                                           causal=True, window=window)
+                                           causal=True, window=window,
+                                           scale=cfg.attn_scale)
         else:
             out = attn_mod.chunked_attention(q, k, v, positions, positions,
-                                             causal=True, window=window)
+                                             causal=True, window=window,
+                                             scale=cfg.attn_scale)
         a_out = einsum("bshk,hkd->bsd", out, lp["wo"])
         for name, t in (("k", k), ("v", v)):
             if "k_scale" in entry:
@@ -396,7 +416,8 @@ def _prefill_layer(cfg: ModelConfig, kind: str, lp, x, positions, frontend,
             cfg, lp, h, use_kernel=use_kernel, return_state=True)
         entry["h"].copy_(h_state)
         entry["conv"].copy_(conv_tail)
-    return _apply_mlp(cfg, lp, _add_mixers(kind, x, a_out, m_out))[0]
+    return _apply_mlp(cfg, lp, _add_mixers(cfg, kind, x, a_out, m_out),
+                      use_kernel)[0]
 
 
 def _at(cache, i: int, r: int):
@@ -461,7 +482,8 @@ def _decode_layer(cfg: ModelConfig, kind: str, lp, entry, x, pos: int,
         a_out = einsum("bshk,hkd->bsd", out, lp["wo"])
     if kind in (SSM, HYBRID):
         m_out = ssm_mod.ssm_decode_step(cfg, lp, h, entry["h"], entry["conv"])
-    return _apply_mlp(cfg, lp, _add_mixers(kind, x, a_out, m_out))[0]
+    return _apply_mlp(cfg, lp, _add_mixers(cfg, kind, x, a_out, m_out),
+                      use_kernel)[0]
 
 
 def decode_step(params, cfg: ModelConfig, cache, token: torch.Tensor, pos,

@@ -50,7 +50,15 @@ Counters (monotonic sums) instrument the coalescing scheduler:
                        batches — spans/batches is the coalescing factor,
   ``forward_rows.m<member>.b<bucket>``
                        valid rows of the forwards timed on the device
-                       (tracing on; beside ``forward_device``).
+                       (tracing on; beside ``forward_device``),
+  ``moe_calls.m<member>``, ``moe_assignments.m<member>``,
+  ``moe_max_rows.m<member>``
+                       a dropless MoE member's layer calls, the
+                       assignments its held experts computed, and the sum
+                       over calls of the largest held expert's rows: kept
+                       on the device by the layers (``models.moe.
+                       MoETally``) and read with the other counters
+                       (:meth:`StageTimers.add_device_counters`).
 
 Gauges record last/max/mean of a sampled value (e.g.
 ``queue_depth.<worker_id>``, that batcher's input-queue backlog at each
@@ -121,6 +129,8 @@ class StageTimers:
         # not per-chunk, so it is off the hot path): cls -> [counts, sum]
         self._latency: Dict[str, list] = {}
         self._lat_lock = threading.Lock()
+        # counters kept on the device: [read() -> {name: value}, baseline]
+        self._device_counters: List[list] = []
 
     def add(self, stage: str, dt: float) -> None:
         self.total_s[stage] += dt
@@ -135,6 +145,12 @@ class StageTimers:
     # ---- counters / gauges ---------------------------------------------------
     def inc(self, name: str, v: float = 1.0) -> None:
         self.counters[name] += v
+
+    def add_device_counters(self, read) -> None:
+        """Counters that live on the device: ``read()`` returns their
+        values (one copy home), summed into :meth:`counter_snapshot` from
+        the last :meth:`reset` on."""
+        self._device_counters.append([read, {}])
 
     def gauge(self, name: str, v: float) -> None:
         g = self._gauges.get(name)
@@ -214,6 +230,8 @@ class StageTimers:
         self.total_s.clear()
         self.count.clear()
         self.counters.clear()
+        for entry in list(self._device_counters):
+            entry[1] = entry[0]()
         with self._gauge_lock:
             self._gauges.clear()
         with self._lat_lock:
@@ -227,7 +245,11 @@ class StageTimers:
                 for stage in sorted(self.total_s)}
 
     def counter_snapshot(self) -> Dict[str, float]:
-        return dict(self.counters)
+        out = dict(self.counters)
+        for read, base in list(self._device_counters):
+            for k, v in read().items():
+                out[k] = out.get(k, 0.0) + v - base.get(k, 0.0)
+        return out
 
     def gauge_snapshot(self) -> Dict[str, Dict[str, float]]:
         with self._gauge_lock:          # vs concurrent first-time inserts

@@ -190,7 +190,19 @@ def make_predict_fn(cfg: ModelConfig, use_kernel: bool = False,
                 return kquant.quantize_symmetric(out, axis=-1)
             return out
 
-    return predict
+    if cfg.moe is None or cfg.moe.impl != "dropless":
+        return predict
+    # a dropless MoE counts its calls and rows on the device
+    # (``predict.moe_tally``, read through the worker's timers)
+    from repro_torch.models.moe import MoETally
+    tally = MoETally()
+
+    def predict_tallied(params, tokens, frontend=None):
+        with tally.active(tokens.device):
+            return predict(params, tokens, frontend)
+
+    predict_tallied.moe_tally = tally
+    return predict_tallied
 
 
 def _span_rids(spans):
@@ -422,6 +434,11 @@ class Worker:
             self.predict_fn = make_predict_fn(
                 cfg, use_kernel, member_dtype=self.member_dtype,
                 quant_out=self._quant_out)
+            tally = getattr(self.predict_fn, "moe_tally", None)
+            if tally is not None:
+                self.timers.add_device_counters(
+                    lambda m=model_idx, t=tally: {
+                        f"{k}.m{m}": v for k, v in t.read().items()})
             if not fake:   # warm-up (and kernel build) so READY means servable
                 if self._copy is not None:
                     # the copy stream's first block: allocated here, its

@@ -362,6 +362,113 @@ def test_dense_routes_by_its_rule_on_the_card(dev):
     assert not any(ops.plain_calls().values())
 
 
+# (tokens T, K, N, experts E, rows of each expert, scatter): granite's
+# gate/up (K 4096 -> 768) gathering token rows, its down (768 -> 4096)
+# scattering onto T rows, empty experts, ragged shapes, a call of no rows
+GROUPED_CASES = [
+    (2048, 4096, 768, 9, [240, 0, 513, 128, 1, 300, 0, 129, 700], False),
+    (2048, 768, 4096, 9, [240, 0, 513, 128, 1, 300, 0, 129, 700], True),
+    (300, 1212, 1004, 5, [0, 130, 1, 0, 257], False),
+    (300, 1004, 1212, 5, [0, 130, 1, 0, 257], True),
+    (64, 256, 128, 3, [0, 0, 0], True),
+]
+
+
+def _grouped_operands(dev, t, k, n, e, counts, scatter):
+    """x (T, K), w (E, K, N), offsets, and the grouped rows' tokens: each
+    expert's rows drawn without repeats from the T tokens, as a top-k
+    router gives them; ``scatter`` adds (T, N) out and row scales."""
+    g = torch.Generator().manual_seed(sum(counts) + k)
+    rows = torch.cat([torch.randperm(t, generator=g)[:c].sort().values
+                      for c in counts] + [torch.zeros(0, dtype=torch.long)])
+    a = len(rows) + 17                       # rows past offsets[E] unused
+    rows = torch.cat([rows, torch.randint(0, t, (17,), generator=g)])
+    offsets = torch.tensor([0] + list(np.cumsum(counts)), dtype=torch.int32)
+    x = _randn(dev, 1, t if not scatter else a, k)
+    w = _randn(dev, 2, e, k, n) * k ** -0.5
+    extra = {}
+    if scatter:
+        extra = {"out": _randn(dev, 3, t, n),
+                 "scatter": rows.to(dev, torch.int32),
+                 "scale": torch.rand(a, generator=g).to(dev)}
+    else:
+        extra = {"rows": rows.to(dev, torch.int32)}
+    return x, w, offsets.to(dev), extra, int(offsets[-1])
+
+
+@pytest.mark.parametrize("t,k,n,e,counts,scatter", GROUPED_CASES)
+def test_grouped_gemm_error_within_twice_cublas(dev, t, k, n, e, counts,
+                                                scatter):
+    """The grouped 3xTF32 GEMM's largest error against the float64 grouped
+    products is within twice that of the plain version (cuBLAS f32, TF32
+    off) on the same inputs; a call is one launch, whatever its rows."""
+    x, w, offsets, extra, used = _grouped_operands(dev, t, k, n, e, counts,
+                                                  scatter)
+    before = gemm.launches.snapshot()["gemm_tf32x3_grouped"]
+    start = extra["out"].clone() if scatter else None
+    got = gemm.gemm_tf32x3_grouped(x, w, offsets, **extra)
+    if scatter:
+        extra["out"] = start.clone()
+    plain = ref.gemm_tf32x3_grouped_ref(x, w, offsets, **extra)
+    if scatter:
+        extra["out"] = start.double()
+        extra["scale"] = extra["scale"].double()
+    want = ref.gemm_tf32x3_grouped_ref(x.double(), w.double(), offsets,
+                                       **extra)
+    torch.cuda.synchronize()
+    assert gemm.launches.snapshot()["gemm_tf32x3_grouped"] == before + 1
+    if not scatter:                  # rows past offsets[E] are unspecified
+        got, plain, want = got[:used], plain[:used], want[:used]
+    assert torch.isfinite(got).all()
+    if used == 0:
+        assert torch.equal(got, plain)
+        return
+    err = (got.double() - want).abs().max().item()
+    lib_err = (plain.double() - want).abs().max().item()
+    assert err <= 2 * lib_err, (err, lib_err)
+
+
+def test_grouped_dense_routes_and_the_moe_layer_needs_no_sync(dev):
+    """``ops.grouped_dense`` takes the kernel for plain f32 operands on the
+    card and the plain version, counted in ``plain_calls``, otherwise; a
+    dropless MoE layer through the kernel is captured in a CUDA graph
+    (which any host wait breaks), and its replay matches the plain
+    layer."""
+    import dataclasses
+    from repro_torch.configs.base import ModelConfig, MoEConfig
+    from repro_torch.models.moe import moe_ffn
+    from repro_torch.models.transformer import init_params
+    cfg = ModelConfig(
+        name="moe", family="moe", num_layers=1, d_model=256, num_heads=4,
+        num_kv_heads=2, d_ff=0, vocab_size=128, pattern=("attn",),
+        moe=MoEConfig(num_experts=16, top_k=4, d_ff_expert=128,
+                      shared_expert=True, d_ff_shared=192, impl="dropless",
+                      experts_held=4, first_expert=4))
+    p = {k: v[0] for k, v in init_params(cfg, 1, dev)["layers"][0].items()}
+    x = _randn(dev, 4, 8, 256, 256)
+    ops.reset_counts()
+    want = moe_ffn(cfg, p, x)[0]
+    assert ops.plain_calls()["gemm_tf32x3_grouped"] == 3
+    assert ops.kernel_launches()["gemm_tf32x3_grouped"] == 0
+    ops.reset_counts()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        moe_ffn(cfg, p, x, use_kernel=True)       # warm: build, attributes
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = moe_ffn(cfg, p, x, use_kernel=True)[0]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert ops.kernel_launches()["gemm_tf32x3_grouped"] == 6
+    assert not any(ops.plain_calls().values())
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+    assert float((want - moe_ffn(dataclasses.replace(cfg, moe=dataclasses.
+                  replace(cfg.moe, first_expert=0)), p, x)[0]).abs().max()) \
+        > 1e-3
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     q = torch.zeros((1, 8, 4, 32), device=dev)
     with pytest.raises(ValueError):
@@ -454,6 +561,7 @@ def test_served_ensemble_goes_through_the_kernels(dev):
     assert launches.pop("ssd_scan") == 0          # attention members only
     assert launches.pop("gemm_tf32x3") == 0       # (it runs SSM projections)
     assert launches.pop("decode_attention") == 0  # no generation here
+    assert launches.pop("gemm_tf32x3_grouped") == 0   # no dropless MoE
     assert all(launches.values()), launches
 
 
@@ -465,6 +573,7 @@ def test_served_ssm_and_hybrid_ensemble_goes_through_the_kernels(dev):
     X = np.random.default_rng(1).integers(0, 512, (40, 72)).astype(np.int32)
     launches = _serve(dev, cfgs, X, [16, 8])
     assert launches.pop("decode_attention") == 0  # no generation here
+    assert launches.pop("gemm_tf32x3_grouped") == 0   # no dropless MoE
     # the projections of a chunk of 16 rows x 72 tokens take the GEMM kernel
     # where ops.dense's rule does (hymba, fp32); mamba2's 8-row chunks of
     # the int8 member may fall under its M threshold
@@ -490,6 +599,7 @@ def test_served_moe_and_cross_attention_ensemble_goes_through_the_kernels(
     assert launches.pop("ssd_scan") == 0
     assert launches.pop("gemm_tf32x3") == 0
     assert launches.pop("decode_attention") == 0
+    assert launches.pop("gemm_tf32x3_grouped") == 0   # llama4's MoE: capacity
     assert all(launches.values()), launches
 
 

@@ -44,9 +44,35 @@ def _tokens(n, seed=0):
                                                 ).astype(np.int32)
 
 
+def _port_only(t, j) -> dict:
+    """The fields of port dataclass ``t`` that JAX's ``j`` lacks, nested
+    groups included, by dotted name."""
+    out = {}
+    for f in dataclasses.fields(t):
+        v = getattr(t, f.name)
+        if not hasattr(j, f.name):
+            out[f.name] = (v, f.default)
+        elif dataclasses.is_dataclass(v):
+            out.update({f"{f.name}.{k}": x for k, x in
+                        _port_only(v, getattr(j, f.name)).items()})
+    return out
+
+
+def _jax_fields(t, j):
+    """``asdict(t)`` cut to the fields JAX's ``j`` has."""
+    return {f.name: (_jax_fields(getattr(t, f.name), getattr(j, f.name))
+                     if dataclasses.is_dataclass(getattr(t, f.name))
+                     else getattr(t, f.name))
+            for f in dataclasses.fields(j)}
+
+
 def test_configs_are_copies():
+    """Every JAX field equal; every port-only field (the multipliers, NoPE,
+    the conv bias, the held experts) at its neutral default."""
     for j, t in zip(jensemble("ENS12"), ensemble("ENS12")):
-        assert dataclasses.asdict(j) == dataclasses.asdict(t)
+        assert dataclasses.asdict(j) == _jax_fields(t, j)
+        for name, (v, default) in _port_only(t, j).items():
+            assert v == default, (t.name, name)
 
 
 @pytest.mark.parametrize("member", [0, 1])

@@ -3,8 +3,8 @@
 
     python3 tools/gemm_variants.py [--only name,name]
 
-Copies ``gemm_tf32x3.cu`` and its header into a temporary directory once
-per variant, edits the copy, builds each with ``nvcc`` (all at once) into a
+Copies ``gemm_tf32x3.cu`` and its headers into a temporary directory once
+per variant, edits the copy (the main loop lies in ``wgmma_tf32.cuh``), builds each with ``nvcc`` (all at once) into a
 library of its own, and times its C entry at mamba2-1.3b's four served
 projection shapes (``chip_smoke.GEMM_SHAPES``) with ``chip_smoke.py``'s
 ``device_ms`` (20 calls in a CUDA graph), beside cuBLAS f32, with the
@@ -50,7 +50,8 @@ SUM = "    for (int i = 0; i < 64; ++i) acc[i] += part[i];\n"
 THREE = ("      wgmma_n128(part, al[j], dh, j > 0);  // the stage's sum starts "
          "afresh\n      wgmma_n128(part, ah[j], dl, 1);\n"
          "      wgmma_n128(part, ah[j], dh, 1);\n")
-# (old, new) edits of each variant's copy of gemm_tf32x3.cu
+# (old, new) edits of each variant's copy of gemm_tf32x3.cu or, where the
+# text lies there, of wgmma_tf32.cuh
 TAIL = ("    cp_async_wait_group<kAhead - 2>();    // stage kt+1 has landed\n"
         "    if (kt + 1 < stages) split_x(kt + 1);\n"
         "    fence_proxy_async();\n"
@@ -85,15 +86,18 @@ def build(work: Path, names) -> dict:
     for name in names:
         d = work / name
         d.mkdir()
-        for f in ("gemm_tf32x3.cu", "tf32_mma.cuh"):
+        for f in ("gemm_tf32x3.cu", "wgmma_tf32.cuh", "tf32_mma.cuh"):
             shutil.copy(CSRC / f, d)
         src = d / "gemm_tf32x3.cu"
         for old, new in VARIANTS[name]:
-            text = src.read_text()
-            if old not in text:
+            for f in (src, d / "wgmma_tf32.cuh"):
+                text = f.read_text()
+                if old in text:
+                    f.write_text(text.replace(old, new))
+                    break
+            else:
                 raise SystemExit(f"gemm_variants.py: {name}: {old!r} not in "
-                                 f"gemm_tf32x3.cu")
-            src.write_text(text.replace(old, new))
+                                 f"gemm_tf32x3.cu or wgmma_tf32.cuh")
         cmd = [_build._nvcc(), *_build.ARCH, "-std=c++17", "-O3",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-shared", "-o",
                str(d / "lib.so"), str(src)]
